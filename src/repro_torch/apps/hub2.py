@@ -1,0 +1,209 @@
+"""Hub²-Labeling for PPSP queries — paper §5.1.2.
+
+The index: pick the k highest-degree vertices as hubs H.  Every vertex
+keeps hub-distance labels L(v) = {<h, d(v,h)>} restricted to *core-hubs*
+(hubs h with no other hub on any shortest v-h path); hubs keep labels to
+all hubs.
+
+As in the paper, **indexing is itself a Quegel job**: the query set is
+{<h> | h in H}, each query a flagged BFS computing d(h, .) and the pre_H(.)
+flag ("some shortest path from h passes another hub").  The engine batches
+these k BFS queries C at a time under superstep-sharing.
+
+Querying: d_ub = min_{h_s, h_t} d(s,h_s) + d(h_s,h_t) + d(h_t,t) from the
+labels (folded into admission), then a BiBFS over the non-hub induced
+subgraph with the early cutoff at superstep 1 + floor(d_ub / 2).
+
+Incremental maintenance and the durable store wait for later slices
+(ROADMAP.md §1 items 7 and 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.engine import QuegelEngine, StepCtx, VertexProgram
+from repro_torch.core.graph import Graph
+from repro_torch.core.semiring import INF, MAX_RIGHT, MIN_RIGHT
+
+
+@dataclasses.dataclass
+class HubIndex:
+    """The V-data index loaded before querying."""
+
+    hub_ids: torch.Tensor  # (k,) int32 vertex ids of hubs
+    is_hub: torch.Tensor  # (V,) bool
+    hub_dist: torch.Tensor  # (k, V) int32 d(h, v), INF if unreachable
+    core: torch.Tensor  # (k, V) bool — h is a core-hub of v (labels kept)
+
+    @property
+    def k(self) -> int:
+        return int(self.hub_ids.shape[0])
+
+    def hub_hub(self) -> torch.Tensor:
+        """(k, k) pairwise hub distance matrix d(h_i, h_j)."""
+        return self.hub_dist[:, self.hub_ids.long()]
+
+    def to(self, device) -> "HubIndex":
+        return HubIndex(*(getattr(self, f.name).to(device)
+                          for f in dataclasses.fields(self)))
+
+
+def pick_hubs(graph: Graph, k: int, mode: str = "degree") -> np.ndarray:
+    """Top-k degree vertices (paper: in/out/sum for directed)."""
+    if mode == "in":
+        deg = graph.in_deg.cpu().numpy()
+    elif mode == "out":
+        deg = graph.out_deg.cpu().numpy()
+    else:
+        deg = graph.in_deg.cpu().numpy() + graph.out_deg.cpu().numpy()
+    deg = deg[: graph.n_real]
+    return np.argsort(-deg, kind="stable")[:k].astype(np.int32)
+
+
+class HubLabelBFS(VertexProgram):
+    """The indexing query <h>: BFS recording d(h, v) and pre_H(v).
+
+    A vertex's outgoing flag is TRUE when a shortest path from h to it
+    passes a hub other than h (itself counting if it is a hub) — receivers
+    of a TRUE flag have h excluded from their core-hub set.
+    """
+
+    def __init__(self, is_hub: torch.Tensor):
+        self.is_hub = is_hub
+
+    def init(self, graph: Graph, query, index=None):
+        h = query[:, 0].long()
+        rows = torch.arange(h.shape[0], device=h.device)
+        dist = torch.full((h.shape[0], graph.n), INF, dtype=torch.int32,
+                          device=h.device)
+        dist[rows, h] = 0
+        frontier = torch.zeros((h.shape[0], graph.n), dtype=torch.bool,
+                               device=h.device)
+        frontier[rows, h] = True
+        return dict(dist=dist, pre=torch.zeros_like(frontier), frontier=frontier)
+
+    def superstep(self, state, ctx: StepCtx):
+        dist, pre, frontier = state["dist"], state["pre"], state["frontier"]
+        h = ctx.query[:, 0].long()
+        # flag lane: a sender emits 1 iff it is a hub other than h, or its
+        # own pre flag is set
+        vid = torch.arange(dist.shape[1], device=dist.device)
+        other_hub = self.is_hub.to(dist.device)[None, :] & (vid[None, :] != h[:, None])
+        sender_flag = (other_hub | pre).to(torch.int32)
+        got_d = ctx.propagate(MIN_RIGHT, dist, frontier)
+        got_f = ctx.propagate(MAX_RIGHT, sender_flag, frontier)
+        newly = (got_d < INF) & (dist >= INF)
+        dist = torch.where(newly, ctx.step[:, None], dist)
+        pre = pre | (newly & (got_f > 0))
+        done = ~newly.any(-1)
+        return dict(dist=dist, pre=pre, frontier=newly), done
+
+    def extract(self, state, query):
+        return dict(dist=state["dist"], pre=state["pre"])
+
+
+def build_hub_index(graph: Graph, k: int, capacity: int = 8,
+                    backend: str = "coo", hubs=None, device=None,
+                    **kw) -> HubIndex:
+    """Run the |H| BFS queries through the engine and assemble the labels.
+
+    HubLabelBFS mixes min_right (distance) and max_right (pre flag) on the
+    same view; the tile plans build one table per semiring.  ``hubs`` pins
+    an explicit hub set (default: ``pick_hubs(graph, k)``).
+    """
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    hubs = pick_hubs(graph, k) if hubs is None else np.array(hubs, np.int32)
+    is_hub_np = np.zeros(graph.n, dtype=bool)
+    is_hub_np[hubs] = True
+    is_hub = torch.from_numpy(is_hub_np).to(dev)
+    eng = QuegelEngine(
+        graph, HubLabelBFS(is_hub), capacity, backend=backend,
+        example_query=np.zeros((1,), np.int32), device=dev, **kw,
+    )
+    qids = [eng.submit(np.asarray([h], np.int32)) for h in hubs]
+    res = eng.run_until_drained()
+    hub_dist = np.stack([np.asarray(res[q]["dist"]) for q in qids])  # (k, V)
+    pre = np.stack([np.asarray(res[q]["pre"]) for q in qids])  # (k, V)
+    # core-hub of v: reachable & no other hub on any shortest path; hubs
+    # always keep all (reachable) hub labels
+    core = (hub_dist < INF) & (~pre | is_hub_np[None, :])
+    return HubIndex(
+        hub_ids=torch.from_numpy(hubs).to(dev),
+        is_hub=is_hub,
+        hub_dist=torch.from_numpy(hub_dist).to(dev),
+        core=torch.from_numpy(core).to(dev),
+    )
+
+
+class Hub2PPSP(VertexProgram):
+    """PPSP query using the Hub² index (paper's querying algorithm):
+    BiBFS over the non-hub induced subgraph, upper-bounded by d_ub."""
+
+    def init(self, graph: Graph, query, index: HubIndex = None):
+        s, t = query[:, 0].long(), query[:, 1].long()
+        lab_s = torch.where(index.core[:, s], index.hub_dist[:, s], INF).T  # (A, k)
+        lab_t = torch.where(index.core[:, t], index.hub_dist[:, t], INF).T
+        hh = index.hub_hub()  # (k, k)
+        # d_ub = min_{hs,ht} d(s,hs) + d(hs,ht) + d(ht,t), summed in float32
+        # exactly as the reference does (its sums stay exact below 2^24)
+        tot = (
+            torch.clamp(lab_s, max=INF)[:, :, None].to(torch.float32)
+            + torch.clamp(hh, max=INF)[None].to(torch.float32)
+            + torch.clamp(lab_t, max=INF)[:, None, :].to(torch.float32)
+        )
+        tmin = tot.amin((1, 2))
+        d_ub = torch.where(tmin < INF, tmin, float(INF)).to(torch.int32)
+        rows = torch.arange(s.shape[0], device=s.device)
+        n = graph.n
+        ds = torch.full((s.shape[0], n), INF, dtype=torch.int32, device=s.device)
+        dt = ds.clone()
+        ds[rows, s] = 0
+        dt[rows, t] = 0
+        ff = torch.zeros((s.shape[0], n), dtype=torch.bool, device=s.device)
+        fb = ff.clone()
+        ff[rows, s] = True
+        fb[rows, t] = True
+        bibest = torch.full_like(d_ub, INF)
+        return dict(ds=ds, dt=dt, ff=ff, fb=fb, d_ub=d_ub, bibest=bibest)
+
+    def superstep(self, state, ctx: StepCtx):
+        is_hub = ctx.index.is_hub[None, :]
+        ds, dt = state["ds"], state["dt"]
+        got_f = ctx.propagate(MIN_RIGHT, ds, state["ff"])
+        got_b = ctx.propagate(MIN_RIGHT, dt, state["fb"], which="rev")
+        new_f = (got_f < INF) & (ds >= INF)
+        new_b = (got_b < INF) & (dt >= INF)
+        step = ctx.step[:, None]
+        ds = torch.where(new_f, step, ds)
+        dt = torch.where(new_b, step, dt)
+        # hubs vote to halt immediately: BiBFS explores G[V - H]
+        ff = new_f & ~is_hub
+        fb = new_b & ~is_hub
+        both = torch.where((ds < INF) & (dt < INF) & ~is_hub, ds + dt, INF)
+        bibest = torch.minimum(state["bibest"], both.amin(-1))
+        # early cutoff (paper): a non-hub vertex bi-reached at superstep
+        # >= 1 + floor(d_ub/2) cannot beat d_ub
+        cutoff = ctx.step >= 1 + state["d_ub"] // 2
+        dead = ~ff.any(-1) | ~fb.any(-1)
+        done = (bibest < INF) | cutoff | dead
+        return dict(ds=ds, dt=dt, ff=ff, fb=fb, d_ub=state["d_ub"],
+                    bibest=bibest), done
+
+    def extract(self, state, query):
+        visited = ((state["ds"] < INF) | (state["dt"] < INF)).sum(-1, dtype=torch.int32)
+        return dict(dist=torch.minimum(state["d_ub"], state["bibest"]),
+                    visited=visited)
+
+
+def make_hub2_engine(graph: Graph, index: HubIndex, capacity: int = 8, **kw):
+    return QuegelEngine(
+        graph, Hub2PPSP(), capacity, index=index,
+        aux_graphs={"rev": graph.reverse()},
+        example_query=np.zeros((2,), np.int32),
+        **kw,
+    )
