@@ -36,6 +36,9 @@ def graph_from_numpy(d: dict, device=None) -> Graph:
 
 
 def blocks_from_numpy(d: dict, device=None) -> BlockSparse:
+    """The dense tile table; the ``cuda`` plan packs it once with
+    ``core.graph.pack_blocks`` (or packs it itself when passed as
+    ``blocks=``)."""
     dev = resolve_device(device)
     return BlockSparse(src_ids=_t(d["src_ids"], dev), tiles=_t(d["tiles"], dev),
                        block=int(d["block"]), nslots=_t(d["nslots"], dev))

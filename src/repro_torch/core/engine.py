@@ -122,7 +122,8 @@ class QuegelEngine(SlotProgram):
                  One backend is built per named view; tile plans build
                  their per-semiring tables at construction.
     blocks     : prebuilt tile table(s) for the default view — one
-                 ``BlockSparse`` or a ``{sr.name: BlockSparse}`` dict.
+                 ``BlockSparse`` or a ``{sr.name: BlockSparse}`` dict
+                 (``cuda`` packs each once, at construction).
     aux_graphs : named alternate views, e.g. {"rev": g.reverse()}; values
                  may be a Graph or (Graph, blocks).
     steps_per_round : k supersteps per round, one sync per round.
@@ -332,12 +333,13 @@ class QuegelEngine(SlotProgram):
         return out
 
     def table_bytes(self) -> int:
-        """Device bytes held by every view's tile tables."""
-        total = 0
+        """Device bytes held by every view's tile tables (dense for
+        ``blocks_ref``, packed for ``cuda``), each table counted once."""
+        tables = {}
         for t in self.export_tables().values():
             for bs in (t.values() if isinstance(t, dict) else [t]):
-                total += bs.nbytes
-        return total
+                tables[id(bs)] = bs
+        return sum(bs.nbytes for bs in tables.values())
 
     # -------------------------------------------------------------- client
     def submit(self, query, *, qid: Optional[int] = None, priority: int = 0,

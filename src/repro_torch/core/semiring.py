@@ -39,6 +39,12 @@ class Semiring:
         ``torch.where``/``full`` never promote an int32 lane to float."""
         return float(self.add_id) if dtype.is_floating_point else int(self.add_id)
 
+    @property
+    def reads_weight(self) -> bool:
+        """Whether ``mul`` reads the edge weight (the ``*_right`` label
+        copies only test that an edge is there)."""
+        return not self.name.endswith("_right")
+
     def segment_combine(self, msgs: torch.Tensor, dst: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
         """Reduce ``msgs`` (L, E) by destination ``dst`` (E,) int64 into

@@ -11,7 +11,9 @@ messages move.  Plans in this port:
   * ``coo``        — ``scatter_reduce`` over the destination-sorted COO view,
   * ``blocks_ref`` — the plain tile loop over block-sparse dense tiles,
   * ``cuda``       — the hand-written Hopper kernel (``frontier.py``) over
-                     the same tiles; on CPU tensors it runs its plain version.
+                     the packed layout of the same tiles (only the entries
+                     that differ from the add-identity); on CPU tensors it
+                     runs its plain version.
 
 Sparsity gating: on the tile plans the frontier is pushed into the block
 path.  A per-(dst block, slot) activity bitmap — the frontier reduced over
@@ -26,13 +28,15 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core.graph import BlockSparse, Graph
+from repro_torch.core.graph import BlockSparse, Graph, PackedBlocks, pack_blocks
 from repro_torch.core.semiring import BY_NAME, Semiring
 from repro_torch.kernels import frontier, ref
 
 
-def block_activity(bs: BlockSparse, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """(nb, max_bpr) bool — which adjacency tiles can contribute.
+def block_activity(bs: Union[BlockSparse, PackedBlocks],
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(nb, max_bpr) bool — which adjacency tiles can contribute.  Reads
+    only the slots (``src_ids``, ``nslots``), so it takes either layout.
 
     A tile is dead when it is a padding slot (k >= nslots[i]) or when its
     source block holds no active vertex in ANY lane (``mask`` reduced over
@@ -59,8 +63,8 @@ class PropagateBackend:
         raise NotImplementedError
 
     def export_tables(self):
-        """Prepared per-semiring tile tables (``{sr.name: BlockSparse}``),
-        else None."""
+        """Prepared per-semiring tile tables (``{sr.name: table}``, in the
+        plan's layout), else None."""
         return None
 
     def refresh(self, graph: Graph, delta=None):
@@ -96,10 +100,11 @@ class _TileBackend(PropagateBackend):
     """Shared plumbing for the block-sparse plans.
 
     The backend owns its tile tables per semiring (a table encodes exactly
-    one add-identity).  ``tables`` may be one ``BlockSparse`` (used for
-    every semiring), a ``{sr.name: BlockSparse}`` dict, or None; missing
-    entries are built on the host, moved to the graph's device once and
-    cached, unless ``strict``.
+    one add-identity).  ``tables`` may be one table (used for every
+    semiring), a ``{sr.name: table}`` dict, or None; a given table is
+    taken into the plan's layout by ``_adopt``, and missing entries are
+    built by ``_build`` on the graph's device once and cached, unless
+    ``strict``.
     """
 
     def __init__(self, graph: Graph, *, tables=None, block: int = 128,
@@ -108,27 +113,38 @@ class _TileBackend(PropagateBackend):
         self.block = int(block)
         self.gate = bool(gate)
         self.strict = bool(strict)
-        self._shared = tables if isinstance(tables, BlockSparse) else None
-        self.tables: dict = dict(tables) if isinstance(tables, dict) else {}
+        self._shared = None
+        self.tables: dict = {}
+        if isinstance(tables, dict):
+            self.tables = {name: self._adopt(t, BY_NAME[name])
+                           for name, t in tables.items()}
+        elif tables is not None:
+            self._shared = tables
 
-    def table_for(self, sr: Semiring) -> BlockSparse:
-        if self._shared is not None:
-            return self._shared
+    def _adopt(self, table, sr: Semiring):
+        raise NotImplementedError
+
+    def _build(self, sr: Semiring):
+        raise NotImplementedError
+
+    def table_for(self, sr: Semiring):
         t = self.tables.get(sr.name)
         if t is None:
-            if self.strict:
+            if self._shared is not None:
+                t = self._adopt(self._shared, sr)
+            elif self.strict:
                 raise ValueError(
                     f"no block-sparse table for semiring '{sr.name}': build one "
-                    "per semiring with Graph.to_blocks(block, sr.add_id)"
+                    "per semiring with Graph.to_blocks(block, sr.add_id) (or "
+                    "Graph.to_packed_blocks for 'cuda')"
                 )
-            t = self.graph.to_blocks(self.block, sr.add_id)
+            else:
+                t = self._build(sr)
             self.tables[sr.name] = t
         return t
 
     def export_tables(self):
-        if self._shared is not None:
-            return self._shared
-        return dict(self.tables) or None
+        return dict(self.tables) or self._shared
 
     def propagate(self, sr, x, frontier=None):
         bs = self.table_for(sr)
@@ -153,16 +169,39 @@ class _TileBackend(PropagateBackend):
 
 
 class BlocksRefBackend(_TileBackend):
+    """The plain tile loop over dense tiles, mirroring the JAX plan."""
+
     name = "blocks_ref"
+
+    def _adopt(self, table, sr):
+        if not isinstance(table, BlockSparse):
+            raise TypeError(f"backend 'blocks_ref' takes dense BlockSparse tables, "
+                            f"got {type(table).__name__}")
+        return table
+
+    def _build(self, sr):
+        return self.graph.to_blocks(self.block, sr.add_id)
 
     def _run(self, bs, sr, flat, mflat, active):
         return ref.propagate_blocks_ref(bs, sr, flat, mask=mflat, active=active)
 
 
 class CudaBackend(_TileBackend):
-    """The hand-written Hopper kernel; in place of the JAX ``pallas`` plan."""
+    """The hand-written Hopper kernel; in place of the JAX ``pallas`` plan.
+    Its tables are packed (``PackedBlocks``): built from the edge list, or
+    packed once from a dense table it is given.  It never builds a dense
+    table itself."""
 
     name = "cuda"
+
+    def _adopt(self, table, sr):
+        if not isinstance(table, BlockSparse):
+            raise TypeError(f"backend 'cuda' takes dense BlockSparse tables to "
+                            f"pack, got {type(table).__name__}")
+        return pack_blocks(table, sr)
+
+    def _build(self, sr):
+        return self.graph.to_packed_blocks(self.block, sr)
 
     def _run(self, bs, sr, flat, mflat, active):
         return frontier.propagate_blocks(bs, sr, flat, mask=mflat, active=active)
@@ -211,7 +250,8 @@ def make_backend(
         if blocks is None and strict_tables:
             raise ValueError(
                 f"backend '{spec}' needs a block-sparse adjacency: build one "
-                "with Graph.to_blocks(block, sr.add_id) and pass blocks="
+                "with Graph.to_blocks(block, sr.add_id) (or Graph.to_packed_blocks "
+                "for 'cuda') and pass blocks="
             )
         cls = CudaBackend if spec == "cuda" else BlocksRefBackend
         return cls(graph, tables=blocks, block=block, gate=gate,

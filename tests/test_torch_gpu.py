@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro_torch.apps import ppsp
-from repro_torch.core.graph import Graph, random_graph
+from repro_torch.core.graph import Graph, barabasi_albert, random_graph
 from repro_torch.core.semiring import BY_NAME
 from repro_torch.kernels import frontier, ops
 
@@ -32,44 +32,74 @@ def cuda():
     return torch.device("cuda")
 
 
+def _graph(dtype, add_id, kind, rng, cuda):
+    """V=700 (no multiple of B), or V=4096 with hubs whose rows span
+    several work items.  ``dups``: duplicate edges the packer must
+    combine, a lone edge whose weight is add_id and a duplicate pair that
+    combines to add_id, which it must drop."""
+    dups = kind == "dups"
+    if kind == "hubs":
+        g = barabasi_albert(4096, 3, seed=int(rng.integers(1000)), device="cpu")
+    else:
+        g = random_graph(700, 3.0, seed=int(rng.integers(1000)), device="cpu")
+    s, d, _ = g._edges_np()
+    if dups:
+        extra = rng.integers(0, len(s), 200)
+        s, d = np.concatenate([s, s[extra], s[:1]]), np.concatenate([d, d[extra], d[:1]])
+    if dtype == torch.float32:  # |t| > 32: add_id + t passes add_id
+        w = (64 * rng.standard_normal(len(s))).astype(np.float32)
+    else:
+        w = rng.integers(1, 9, len(s)).astype(np.int32)
+    if dups:
+        w[len(s) // 2] = add_id
+        w[0], w[-1] = (add_id, add_id) if add_id else (w[-1], -w[-1])
+    return Graph.from_edges(s, d, g.n_real, w=w, weight_dtype=w.dtype, device=cuda)
+
+
 @pytest.mark.parametrize("sr_name,dtype", CASES, ids=[f"{s}-{str(d)[6:]}" for s, d in CASES])
 @pytest.mark.parametrize("block", [16, 128])
 @pytest.mark.parametrize("q", [1, 5, 11])
-def test_kernel_matches_plain(cuda, sr_name, dtype, block, q):
-    """Gated with a mask, dense, and all-dead; V=700 is no multiple of B,
-    and Q=11 spans two Q-tiles."""
+@pytest.mark.parametrize("kind", ["simple", "dups", "hubs"])
+def test_kernel_matches_plain(cuda, sr_name, dtype, block, q, kind):
+    """Packed inputs, gated with a mask, dense, and all-dead; Q=11 spans
+    two Q-tiles.  Exact, except float sum_times to 1e-4 (atomic sum
+    order); the outputs left at add_id are the same in every case."""
     rng = np.random.default_rng(block * 31 + q)
     sr = BY_NAME[sr_name]
-    g = random_graph(700, 3.0, seed=q, device=cuda)
+    g = _graph(dtype, sr.identity(dtype), kind, rng, cuda)
     if dtype == torch.float32:
-        s, d, _ = g._edges_np()
-        w = rng.random(len(s)).astype(np.float32) + 0.1
-        g = Graph.from_edges(s, d, 700, w=w, weight_dtype=np.float32, device=cuda)
         x = torch.from_numpy(rng.standard_normal((q, g.n)).astype(np.float32)).to(cuda)
     else:
         xn = rng.integers(0, 20, (q, g.n)).astype(np.int32)
         xn[rng.random((q, g.n)) < 0.5] = sr.add_id
         x = torch.from_numpy(xn).to(cuda)
-    bs = g.to_blocks(block, sr.add_id)
+    pb = g.to_packed_blocks(block, sr)
     mask = torch.from_numpy(rng.random((q, g.n)) < 0.2).to(cuda)
-    dead = torch.zeros((bs.num_dst_blocks, bs.max_bpr), dtype=torch.bool, device=cuda)
-    for m, act in ((mask, ops.block_activity(bs, mask)), (None, None), (mask, dead)):
-        got = frontier.propagate_blocks(bs, sr, x, m, act)
-        want = frontier.propagate_blocks_plain(bs, sr, x, m, act)
-        if dtype == torch.float32:
+    dead = torch.zeros((pb.num_dst_blocks, pb.max_bpr), dtype=torch.bool, device=cuda)
+    for m, act in ((mask, ops.block_activity(pb, mask)), (None, None), (mask, dead)):
+        got = frontier.propagate_blocks(pb, sr, x, m, act)
+        want = frontier.propagate_blocks_plain(pb, sr, x, m, act)
+        add_id = sr.identity(dtype)
+        assert torch.equal(got == add_id, want == add_id)
+        if dtype == torch.float32 and sr_name == "sum_times":
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         else:
             assert torch.equal(got, want)
+        if act is dead:
+            assert (got == add_id).all()
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     g = random_graph(64, 2.0, seed=1, device=cuda)
-    bs = g.to_blocks(16, BY_NAME["min_right"].add_id)
+    sr = BY_NAME["min_right"]
+    pb = g.to_packed_blocks(16, sr)
     x = torch.zeros((2, g.n), dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):
-        frontier.propagate_blocks(bs, BY_NAME["min_right"], x)
+        frontier.propagate_blocks(pb, sr, x)
     with pytest.raises(TypeError):
-        frontier.propagate_blocks(bs, BY_NAME["min_right"], x.float())
+        frontier.propagate_blocks(pb, sr, x.float())
+    with pytest.raises(TypeError, match="pack_blocks"):
+        frontier.propagate_blocks(g.to_blocks(16, sr.add_id), sr, x.int())
 
 
 def test_engine_cuda_plan_launches_the_kernel(cuda):

@@ -43,8 +43,11 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_no_module_names_jax_in_an_import():
+    """Every module of the port, and the chip script at the repo root."""
     pkg = Path(repro_torch.__file__).resolve().parent
-    for path in pkg.rglob("*.py"):
+    smoke = SRC.parent / "chip_smoke.py"
+    assert smoke.is_file()
+    for path in [*pkg.rglob("*.py"), smoke]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
