@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and hold its kernel
-against the plain PyTorch version.
+"""Drive the PyTorch/CUDA port's main path and its other query classes on
+one GPU and hold its kernel against the plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -31,10 +31,29 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      3.35 TB/s: per lit edge its position, x, mask and y once, the bitmap
      of the slots that hold entries and the source block of the lit ones);
      at n = 32768 the kernel is also held against the dense
-     tile loop over the dense table.
-The last lines are the card, one JSON object describing the kernel, and
-{"ok": true, "device": {...}}.
+     tile loop over the dense table;
+  5. the paper's other four query classes at full size, each through
+     backend="cuda" and again through backend="coo" at C=8: terrain SSSP
+     on grid_terrain(257, 257, eps_subdiv=2) (float32 min_plus), graph
+     keyword search on the main path's graph (int32 min_plus, 4 lanes per
+     slot), P2P reachability on random_dag(262144, 2.5) with its SCC and
+     label index (int32 min_right) and XML SLCA/ELCA/MaxMatch on
+     random_tree(262144, 8) (int32 max_right, 5, 9 and 21 lanes per
+     slot): identical answers across the plans, a sample checked against
+     a host oracle (scipy.sparse.csgraph, numpy), and the kernel launched
+     in every cuda run.  Phase 2 also holds the kernel against its plain
+     version at these paths' shapes: Q in {32, 42, 72, 168} on a reversed
+     graph with weight N (int32 min_plus), a grid_terrain graph (float32
+     min_plus), a random_tree (max_right) and a random_dag (min_right).
+Every cuda path runs with the kernel's launch counts set to 0 just before
+it and read just after; then its work runs again with the kernel's output
+held against the plain version, exactly, on the inputs of the 1st, 2nd,
+4th, 8th, ... launch of each (semiring, dtype, Q) that the path
+launched.  The last lines are the card, one JSON object
+describing the kernel (its launches per path, semiring, dtype and Q
+under "paths"), and {"ok": true, "device": {...}}.
 """
+import collections
 import gc
 import json
 import statistics
@@ -53,6 +72,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores
 MAIN_N, MAIN_M, MAIN_PAIRS = 262144, 3, 256
 FIRST_N = 32768             # the dense-tile kernel's main path, timed like for like
+TERRAIN_SIDE = 257          # grid_terrain(257, 257, eps_subdiv=2): 513 x 513 vertices
+TERRAIN_K = 4               # terrain supersteps per round (hundreds per query)
 
 
 def fail(msg: str):
@@ -90,6 +111,71 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def take_counts():
+    """The kernel's launch counts since the last call, as (launches,
+    {(semiring, dtype, Q): launches}), and reset them to 0."""
+    from repro_torch.kernels import frontier
+
+    f = frontier.propagate_blocks
+    out = (f.launches, dict(f.shapes))
+    f.launches = 0
+    f.shapes.clear()
+    return out
+
+
+def path_rows(path: str, shapes: dict) -> list:
+    """The kernel line's "paths" rows of one path's launch counts."""
+    return [dict(path=path, semiring=sr, dtype=dt, q=q, launches=n)
+            for (sr, dt, q), n in sorted(shapes.items())]
+
+
+def path_keys(rows: list, path: str) -> set:
+    """The (semiring, dtype, Q) keys that one path's counted run launched."""
+    return {(r["semiring"], r["dtype"], r["q"]) for r in rows if r["path"] == path}
+
+
+def check_launches(path: str, run, keys: set) -> None:
+    """Run a path's work again with the kernel's output held against its
+    plain version on exactly the inputs that launch was given: the 1st,
+    2nd, 4th, 8th, ... launch of each (semiring, dtype, Q), so early,
+    middle and late supersteps of the path's queries.  Exact
+    (torch.equal) on every path: none of them runs float sum_times.
+    Fails unless each key of ``keys`` (the path's counted run) was
+    checked.  The launches of this run are not counted."""
+    from repro_torch.kernels import frontier, ops
+
+    orig = ops.CudaBackend._run
+    seen, checked = collections.Counter(), collections.Counter()
+
+    def checked_run(self, bs, sr, flat, mflat, active):
+        out = orig(self, bs, sr, flat, mflat, active)
+        key = (sr.name, str(flat.dtype).removeprefix("torch."), flat.shape[0])
+        seen[key] += 1
+        if seen[key] & (seen[key] - 1) == 0:
+            want = frontier.propagate_blocks_plain(bs, sr, flat, mflat, active)
+            if out.shape != want.shape or not torch.equal(out, want):
+                fail(f"{path}: launch {seen[key]} at {key} differs from the plain "
+                     "version on its own inputs")
+            checked[key] += 1
+        return out
+
+    f = frontier.propagate_blocks
+    saved = (f.launches, f.shapes.copy())
+    ops.CudaBackend._run = checked_run
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ops.CudaBackend._run = orig
+        f.launches, f.shapes = saved  # a check, not the path
+    missing = set(keys) - set(checked)
+    if missing:
+        fail(f"{path}: no launch at {sorted(missing)} was held against the plain version")
+    done = ", ".join(f"{sr}/{dt}/Q={q} x{n}" for (sr, dt, q), n in sorted(checked.items()))
+    print(f"  [cuda] {path}: kernel == plain, exactly, on {sum(checked.values())} of "
+          f"{sum(seen.values())} launches, on their own inputs ({done})", flush=True)
+
+
 # ------------------------------------------------------------ phase 2
 def parity_graph(n: int, kind: str, sr, dtype, rng):
     """A random graph on the card; "hubs": barabasi_albert(n, 3), whose hub
@@ -116,12 +202,48 @@ def parity_graph(n: int, kind: str, sr, dtype, rng):
     return Graph.from_edges(s, d, n, w=w, weight_dtype=w.dtype, device="cuda")
 
 
+def kernel_cases(pb, sr, x, m, where: str):
+    """The kernel against its plain version on one packed table and x:
+    gated and dense, with and without the mask m, and an all-dead bitmap.
+    Exact, except float sum_times (atomic order) to 1e-4; the outputs at
+    add_id are the same in every case.  Returns (cases, max abs error)."""
+    from repro_torch.kernels import frontier, ops
+
+    dead = torch.zeros((pb.num_dst_blocks, pb.max_bpr), dtype=torch.bool, device="cuda")
+    variants = [
+        (None, ops.block_activity(pb, None)),  # gated, no mask
+        (m, ops.block_activity(pb, m)),        # gated, mask
+        (None, None),                          # dense
+        (m, None),                             # dense, mask
+        (m, dead),                             # all dead
+    ]
+    worst = 0.0
+    add_id = sr.identity(x.dtype)
+    for mask, active in variants:
+        got = frontier.propagate_blocks(pb, sr, x, mask, active)
+        want = frontier.propagate_blocks_plain(pb, sr, x, mask, active)
+        torch.cuda.synchronize()
+        at = f"{where} mask={mask is not None} active={active is not None}"
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"kernel shape/dtype differs: {at}")
+        if not torch.equal(got == add_id, want == add_id):
+            fail(f"kernel and plain differ on which outputs are add_id: {at}")
+        if x.dtype == torch.float32 and sr.name == "sum_times":
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+                fail(f"kernel disagrees beyond 1e-4: {at}")
+            worst = max(worst, float((got - want).abs().max()))
+        elif not torch.equal(got, want):
+            fail(f"kernel differs from plain version: {at}")
+        if active is dead and not (got == add_id).all():
+            fail(f"all-dead bitmap left a non-identity output: {at}")
+    return len(variants), worst
+
+
 def phase_kernel_parity() -> float:
     """Every case of the kernel against its plain version; returns the
     largest absolute difference seen (0 on every integer case)."""
     from repro_torch.core.graph import pack_blocks
     from repro_torch.core.semiring import BY_NAME
-    from repro_torch.kernels import frontier, ops
 
     cases = [("min_plus", torch.int32), ("min_right", torch.int32),
              ("max_right", torch.int32), ("max_plus", torch.int32),
@@ -153,39 +275,65 @@ def phase_kernel_parity() -> float:
                         x[rng.random((q, n)) < 0.5] = sr.add_id
                     x = torch.from_numpy(x).cuda()
                     m = torch.from_numpy(rng.random((q, n)) < 0.2).cuda()
-                    dead = torch.zeros((pb.num_dst_blocks, pb.max_bpr),
-                                       dtype=torch.bool, device="cuda")
-                    variants = [
-                        (None, ops.block_activity(pb, None)),  # gated, no mask
-                        (m, ops.block_activity(pb, m)),        # gated, mask
-                        (None, None),                          # dense
-                        (m, None),                             # dense, mask
-                        (m, dead),                             # all dead
-                    ]
-                    for mask, active in variants:
-                        got = frontier.propagate_blocks(pb, sr, x, mask, active)
-                        want = frontier.propagate_blocks_plain(pb, sr, x, mask, active)
-                        torch.cuda.synchronize()
-                        n_cases += 1
-                        where = f"{sr_name}/{dtype} n={n} {kind} B={block} " \
-                                f"Q={q} mask={mask is not None} active={active is not None}"
-                        if got.shape != want.shape or got.dtype != want.dtype:
-                            fail(f"kernel shape/dtype differs: {where}")
-                        add_id = sr.identity(dtype)
-                        if not torch.equal(got == add_id, want == add_id):
-                            fail(f"kernel and plain differ on which outputs are "
-                                 f"add_id: {where}")
-                        if dtype == torch.float32 and sr.name == "sum_times":
-                            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
-                                fail(f"kernel disagrees beyond 1e-4: {where}")
-                            worst = max(worst, float((got - want).abs().max()))
-                        elif not torch.equal(got, want):
-                            fail(f"kernel differs from plain version: {where}")
-                        if active is dead and not (got == add_id).all():
-                            fail(f"all-dead bitmap left a non-identity output: {where}")
+                    where = f"{sr_name}/{dtype} n={n} {kind} B={block} Q={q}"
+                    k, err = kernel_cases(pb, sr, x, m, where)
+                    n_cases += k
+                    worst = max(worst, err)
     print(f"phase 2: packed kernel == plain on {n_cases} cases (exact, float "
           f"sum_times to rtol=atol=1e-4); max_abs_err={worst!r}", flush=True)
     return worst
+
+
+def phase_kernel_parity_apps() -> None:
+    """The kernel against its plain version at the shapes of phase 5's
+    paths, exactly: Q in {32, 42, 72, 168} (42 is no multiple of the
+    8-lane tile) on a reversed random graph with weight N under int32
+    min_plus (x = hop * N + vid or INF), a grid_terrain graph under
+    float32 min_plus (x = distances >= 0 or 2^30), a random_tree under
+    max_right (x in {0, 1}) and a random_dag under min_right."""
+    from repro_torch.core.graph import (Graph, grid_terrain, random_dag, random_graph,
+                                        random_tree)
+    from repro_torch.core.semiring import INF, MAX_RIGHT, MIN_PLUS, MIN_RIGHT
+
+    rev = random_graph(4096, 3.0, seed=7, device="cpu").reverse()
+    s_, d_, _ = rev._edges_np()
+    keyword_g = Graph.from_edges(s_, d_, rev.n_real, w=np.full(len(s_), rev.n, np.int32),
+                                 device="cuda")
+    terrain_g, _ = grid_terrain(32, 32, eps_subdiv=2, seed=0, device="cuda")
+    tree_g, _ = random_tree(4096, max_fanout=8, seed=0, device="cuda")
+    dag_g = random_dag(4096, 2.5, seed=0, device="cuda")
+
+    def keyword_x(rng, q, n):
+        x = (rng.integers(0, 4, (q, n)) * n + rng.integers(0, n, (q, n))).astype(np.int32)
+        x[rng.random((q, n)) < 0.5] = INF
+        return x
+
+    def terrain_x(rng, q, n):
+        x = (rng.random((q, n)) * 5000).astype(np.float32)
+        x[rng.random((q, n)) < 0.5] = float(INF)
+        return x
+
+    paths = [("keyword", keyword_g, MIN_PLUS, keyword_x),
+             ("terrain", terrain_g, MIN_PLUS, terrain_x),
+             ("xml", tree_g, MAX_RIGHT,
+              lambda rng, q, n: rng.integers(0, 2, (q, n)).astype(np.int32)),
+             ("reach", dag_g, MIN_RIGHT,
+              lambda rng, q, n: np.where(rng.random((q, n)) < 0.5, INF,
+                                         rng.integers(0, 20, (q, n))).astype(np.int32))]
+    n_cases = 0
+    for name, g, sr, make_x in paths:
+        rng = np.random.default_rng(len(name))
+        for block in (16, 128):
+            pb = g.to_packed_blocks(block, sr)
+            for q in (32, 42, 72, 168):
+                x = torch.from_numpy(make_x(rng, q, g.n)).cuda()
+                m = torch.from_numpy(rng.random((q, g.n)) < 0.3).cuda()
+                k, err = kernel_cases(pb, sr, x, m, f"{name} {sr.name} B={block} Q={q}")
+                if err != 0.0:
+                    fail(f"{name}: the kernel is not exact")
+                n_cases += k
+    print(f"phase 2: packed kernel == plain, exactly, on {n_cases} cases at the "
+          f"app paths' shapes (Q in 32, 42, 72, 168)", flush=True)
 
 
 # ------------------------------------------------------------ phase 3
@@ -206,20 +354,26 @@ def host_bfs(graph, s: int) -> np.ndarray:
     return dist
 
 
-def device_breakdown(run, wall_s: float, what: str) -> None:
+def device_breakdown(run, wall_s: float, what: str):
     """Run the same work again under torch.profiler and split the device
     time by kernel; the busy share is over the unprofiled wall time of the
-    same work (the profiler's own overhead would inflate it)."""
+    same work (the profiler's own overhead would inflate it).  Only device
+    activity is traced: host op events cost tens of seconds on the
+    terrain path's 16,000 supersteps.  Returns (device busy s, the
+    frontier kernel's device s), None where the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import frontier
 
-    launches = frontier.propagate_blocks.launches
+    f = frontier.propagate_blocks
+    saved = (f.launches, f.shapes.copy())
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    frontier.propagate_blocks.launches = launches  # a measurement, not the path
+    f.launches, f.shapes = saved  # a measurement, not the path
     dev = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -230,12 +384,15 @@ def device_breakdown(run, wall_s: float, what: str) -> None:
     if not dev:
         print(f"  {what}: profiler saw no device time: device busy share not measured",
               flush=True)
-        return
+        return None, None
     busy = sum(dev.values()) / 1e6
+    kernel_s = sum(v for k, v in dev.items() if "propagate_packed" in k) / 1e6
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:4]
     names = "; ".join(f"{k[:60]} {v / 1e6:.4f} s" for k, v in top)
     print(f"  {what}: device busy {busy:.4f} s of {wall_s:.4f} s wall "
-          f"({100 * busy / wall_s:.1f} %); top kernels: {names}", flush=True)
+          f"({100 * busy / wall_s:.1f} %); top kernels: {names} (profiled in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return busy, kernel_s
 
 
 def redrain(eng, pairs):
@@ -249,29 +406,33 @@ def run_main_path(g, pairs, backend: str) -> dict:
     from repro_torch.apps.hub2 import build_hub_index, make_hub2_engine
     from repro_torch.apps.ppsp import make_bibfs_engine
     from repro_torch.configs.quegel import QuegelConfig
-    from repro_torch.kernels import frontier
 
     cfg = QuegelConfig()
     kw = dict(backend=backend, block=cfg.block_size)
-    out, rounds = {}, 0
+    out, rounds, paths, total = {}, 0, [], [0]
     torch.cuda.reset_peak_memory_stats()
-    mark = [frontier.propagate_blocks.launches]
 
-    def launched() -> int:
-        n = frontier.propagate_blocks.launches - mark[0]
-        mark[0] = frontier.propagate_blocks.launches
+    def launched(path: str) -> int:
+        """Read the counts of the path just driven (and set them to 0)."""
+        n, shapes = take_counts()
+        total[0] += n
+        paths.extend(path_rows(path, shapes))
         return n
 
     eng = make_bibfs_engine(g, capacity=1, **kw)
-    launched()
+    take_counts()
     res, dt = sync_time(lambda: [eng.query(p) for p in pairs[:8]])
     out["interactive"] = dict(enumerate(res))
     st = eng.stats
     rounds += st.rounds
     print(f"  [{backend}] interactive BiBFS C=1: 8 queries, {st.rounds} rounds, "
           f"{st.supersteps_total} supersteps, {8 / dt:.3f} q/s, "
-          f"{dt / max(st.rounds, 1):.6f} s/round, {launched()} kernel launches",
+          f"{dt / max(st.rounds, 1):.6f} s/round, {launched('bibfs_interactive')} "
+          "kernel launches",
           flush=True)
+    if backend == "cuda":
+        check_launches("bibfs_interactive", lambda: [eng.query(p) for p in pairs[:8]],
+                       path_keys(paths, "bibfs_interactive"))
     del eng
     gc.collect()
 
@@ -279,7 +440,7 @@ def run_main_path(g, pairs, backend: str) -> dict:
     table_bytes = eng.table_bytes()
     for p in pairs:
         eng.submit(p)
-    launched()
+    take_counts()
     res, dt = sync_time(eng.run_until_drained)
     out["bibfs"] = res
     st = eng.stats
@@ -287,18 +448,21 @@ def run_main_path(g, pairs, backend: str) -> dict:
     print(f"  [{backend}] batch BiBFS C={cfg.capacity}: {len(pairs)} queries, "
           f"{st.rounds} rounds, {st.supersteps_total} supersteps, "
           f"{len(pairs) / dt:.3f} q/s, {dt / st.rounds:.6f} s/round, "
-          f"table bytes {table_bytes}, {launched()} kernel launches", flush=True)
+          f"table bytes {table_bytes}, {launched('bibfs')} kernel launches", flush=True)
     device_breakdown(redrain(eng, pairs), dt, f"[{backend}] batch BiBFS")
+    if backend == "cuda":
+        check_launches("bibfs", redrain(eng, pairs), path_keys(paths, "bibfs"))
     del eng
     gc.collect()
 
-    launched()
+    take_counts()
     build = lambda: build_hub_index(g, cfg.hub_k, capacity=cfg.capacity, **kw)
     idx, build_s = sync_time(build)
     out["index"] = {k: getattr(idx, k).cpu().numpy()
                     for k in ("hub_ids", "is_hub", "hub_dist", "core")}
     print(f"  [{backend}] Hub2 index build k={cfg.hub_k} C={cfg.capacity}: "
-          f"{build_s:.3f} s wall (table build included), {launched()} kernel launches",
+          f"{build_s:.3f} s wall (table build included), {launched('hub2_build')} "
+          "kernel launches",
           flush=True)
     gc.collect()
 
@@ -306,7 +470,7 @@ def run_main_path(g, pairs, backend: str) -> dict:
     hub2_table_bytes = eng.table_bytes()
     for p in pairs:
         eng.submit(p)
-    launched()
+    take_counts()
     res, dt = sync_time(eng.run_until_drained)
     out["hub2"] = res
     st = eng.stats
@@ -314,12 +478,15 @@ def run_main_path(g, pairs, backend: str) -> dict:
     print(f"  [{backend}] Hub2 batch C={cfg.capacity}: {len(pairs)} queries, "
           f"{st.rounds} rounds, {st.supersteps_total} supersteps, "
           f"{len(pairs) / dt:.3f} q/s, {dt / st.rounds:.6f} s/round, "
-          f"table bytes {hub2_table_bytes}, {launched()} kernel launches", flush=True)
+          f"table bytes {hub2_table_bytes}, {launched('hub2')} kernel launches", flush=True)
     device_breakdown(redrain(eng, pairs), dt, f"[{backend}] Hub2 batch")
+    if backend == "cuda":
+        check_launches("hub2", redrain(eng, pairs), path_keys(paths, "hub2"))
     del eng, idx
     gc.collect()
     torch.cuda.empty_cache()
     out["engine_rounds"] = rounds
+    out["launches"], out["paths"] = total[0], paths
     print(f"  [{backend}] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
 
@@ -327,6 +494,8 @@ def run_main_path(g, pairs, backend: str) -> dict:
         build()
 
     device_breakdown(rebuild, build_s, f"[{backend}] Hub2 index build")
+    if backend == "cuda":
+        check_launches("hub2_build", rebuild, path_keys(paths, "hub2_build"))
     return out
 
 
@@ -342,16 +511,14 @@ def same_results(a: dict, b: dict) -> bool:
 
 def phase_main_path():
     from repro_torch.core.graph import barabasi_albert
-    from repro_torch.kernels import frontier
 
     (g, dt) = sync_time(lambda: barabasi_albert(MAIN_N, MAIN_M, seed=0))
     print(f"phase 3: barabasi_albert({MAIN_N}, {MAIN_M}): {g.num_edges} edges "
           f"in {dt:.2f} s", flush=True)
     pairs = np.random.default_rng(1).integers(0, g.n_real, (MAIN_PAIRS, 2)).astype(np.int32)
 
-    frontier.propagate_blocks.launches = 0
     cuda = run_main_path(g, pairs, "cuda")
-    launches = frontier.propagate_blocks.launches
+    launches = cuda["launches"]
     rounds = cuda["engine_rounds"]
     print(f"  kernel launches in the cuda runs: {launches} over {rounds} "
           "engine rounds (hub build rounds not counted)", flush=True)
@@ -359,6 +526,8 @@ def phase_main_path():
         fail(f"kernel launched {launches} times over {rounds} rounds")
 
     coo = run_main_path(g, pairs, "coo")
+    if coo["launches"]:
+        fail(f"the coo runs launched the kernel {coo['launches']} times")
     for part in ("interactive", "bibfs", "hub2"):
         if not same_results(cuda[part], coo[part]):
             fail(f"{part}: cuda and coo answers differ")
@@ -381,7 +550,7 @@ def phase_main_path():
             fail(f"hub_dist row {r} differs from host BFS")
     print("phase 3: cuda == coo on every answer and index array; 16 pairs "
           "and 3 hub rows match a host BFS", flush=True)
-    return g, pairs, launches
+    return g, pairs, launches, cuda["paths"]
 
 
 # ------------------------------------------------------------ phase 4
@@ -440,7 +609,6 @@ def time_propagate(g, check_dense: bool) -> dict:
     plain = lambda: frontier.propagate_blocks_plain(pb, sr, dist, front, active)
     coo = ops.CooBackend(g)
     lib = lambda: coo.propagate(sr, dist, front)
-    before = frontier.propagate_blocks.launches
     y_k, y_p, y_c = kern(), plain(), lib()
     if not (torch.equal(y_k, y_p) and torch.equal(y_k, y_c)):
         fail(f"n={g.n} propagate: kernel, plain and coo disagree")
@@ -462,7 +630,7 @@ def time_propagate(g, check_dense: bool) -> dict:
     ms = event_ms(kern, 50)
     plain_ms = event_ms(plain, 10)
     library_ms = event_ms(lib, 50)
-    frontier.propagate_blocks.launches = before  # timing launches are not the path's
+    take_counts()  # timing launches are not a path's
     v = g.n
     per_edge = 4 + (4 if sr.reads_weight else 0)   # packed position (+ weight)
     nbytes = (lit_edges * per_edge
@@ -496,6 +664,266 @@ def phase_timing(g_main) -> dict:
     return dict(main, n=g_main.n, **{f"at_n_{FIRST_N}": first})
 
 
+# ------------------------------------------------------------ phase 5
+APPS_C = 8  # QuegelConfig.capacity
+
+
+def run_app(path: str, make_engine, queries, backend: str) -> dict:
+    """One query class through one plan: build its engine, drain the
+    queries with the kernel's counts set to 0 just before and read just
+    after, then profile a second drain of the same queries; on cuda, a
+    third drain holds launches of the kernel against its plain version
+    on their own inputs (:func:`check_launches`)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng, build_s = sync_time(lambda: make_engine(backend))
+    for q in queries:
+        eng.submit(q)
+    take_counts()
+    res, dt = sync_time(eng.run_until_drained)
+    launches, shapes = take_counts()
+    st = eng.stats
+    rounds, steps = st.rounds, st.supersteps_total
+    mem = torch.cuda.max_memory_allocated()
+    busy, kernel_s = device_breakdown(redrain(eng, queries), dt, f"[{backend}] {path}")
+    kernel = ("no kernel" if backend == "coo" else "not measured" if kernel_s is None
+              else f"{kernel_s:.4f} s")
+    print(f"  [{backend}] {path}: {len(queries)} queries, {rounds} rounds, {steps} "
+          f"supersteps, wall {dt:.4f} s, {len(queries) / dt:.3f} q/s, {launches} kernel "
+          f"launches, kernel device {kernel}, engine built in {build_s:.3f} s, "
+          f"max_memory_allocated {mem} bytes", flush=True)
+    if backend == "cuda" and (launches == 0 or launches < rounds):
+        fail(f"{path}: the cuda run launched the kernel {launches} times in {rounds} rounds")
+    if backend == "coo" and launches:
+        fail(f"{path}: the coo run launched the kernel {launches} times")
+    rows = path_rows(path, shapes)
+    if backend == "cuda":
+        check_launches(path, redrain(eng, queries), path_keys(rows, path))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(results=res, launches=launches, rows=rows)
+
+
+def both_plans(path: str, make_engine, queries) -> tuple:
+    """The same queries through cuda and coo; fails unless every answer is
+    identical.  Returns (cuda answers, launches, path rows)."""
+    cuda = run_app(path, make_engine, queries, "cuda")
+    coo = run_app(path, make_engine, queries, "coo")
+    if not same_results(cuda["results"], coo["results"]):
+        fail(f"{path}: cuda and coo answers differ")
+    return cuda["results"], cuda["launches"], cuda["rows"]
+
+
+def keyword_queries(rng, count: int, maxk: int) -> np.ndarray:
+    """count queries of 2 or 3 distinct keywords among the 30 most frequent
+    token ids (the paper's K_30 selection), padded with -1."""
+    out = np.full((count, maxk), -1, np.int32)
+    for i in range(count):
+        k = 2 + i % 2
+        out[i, :k] = rng.choice(30, k, replace=False)
+    return out
+
+
+def app_terrain():
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from repro_torch.apps.terrain import euclidean, make_terrain_engine
+    from repro_torch.core.graph import grid_terrain
+
+    (g, coords), dt = sync_time(
+        lambda: grid_terrain(TERRAIN_SIDE, TERRAIN_SIDE, eps_subdiv=2, seed=0, device="cuda"))
+    print(f"phase 5 terrain: grid_terrain({TERRAIN_SIDE}, {TERRAIN_SIDE}, eps_subdiv=2): "
+          f"{g.n} vertices, "
+          f"{g.num_edges} edges, float32 weights, in {dt:.2f} s; C={APPS_C}, "
+          f"steps_per_round={TERRAIN_K}", flush=True)
+    pairs = np.random.default_rng(1).integers(0, g.n_real, (64, 2)).astype(np.int32)
+    make = lambda b: make_terrain_engine(g, coords, capacity=APPS_C, backend=b,
+                                         steps_per_round=TERRAIN_K)
+    res, launches, rows = both_plans("terrain", make, pairs)
+    src, dst, w = g._edges_np()
+    want = dijkstra(csr_matrix((w, (src, dst)), shape=(g.n, g.n)),
+                    indices=pairs[:8, 0].astype(np.int64))
+    for q, (s, t) in enumerate(pairs[:8]):
+        got = float(res[q]["dist"])
+        if not np.isclose(got, want[q, t], rtol=1e-4, atol=0.0):
+            fail(f"terrain d({s},{t}) = {got!r}, Dijkstra says {want[q, t]!r}")
+    # the Euclidean distances the early-termination test reads: the port's
+    # are the same on the card as on the host (where they equal XLA's)
+    tc, src8 = torch.from_numpy(coords), torch.from_numpy(pairs[:8, 0].astype(np.int64))
+    if not torch.equal(euclidean(tc.cuda(), src8.cuda()).cpu(), euclidean(tc, src8)):
+        fail("terrain: the Euclidean distances differ between the card and the host")
+    differ = sum(int((torch.linalg.vector_norm(tc.cuda() - tc.cuda()[int(s)], dim=-1).cpu()
+                      != torch.linalg.vector_norm(tc - tc[int(s)], dim=-1)).sum())
+                 for s in src8)
+    print(f"  terrain: cuda == coo on all 64 answers; 8 match scipy Dijkstra to rtol 1e-4; "
+          f"the Euclidean distances equal the host's; torch.linalg.vector_norm on the card "
+          f"differs from the host's in {differ} of {8 * g.n} float32 values", flush=True)
+    return launches, rows
+
+
+def app_keyword(g):
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from repro_torch.apps.keyword import MAXK, make_keyword_engine, make_vertex_text
+    from repro_torch.core.semiring import INF
+
+    tokens, dt = sync_time(lambda: make_vertex_text(g.n_real, 10_000, 4, seed=2))
+    print(f"phase 5 keyword: the main path's graph ({g.n} vertices, {g.num_edges} edges), "
+          f"make_vertex_text(vocab=10000, 4 tokens) in {dt:.2f} s; delta_max=3, "
+          f"C={APPS_C} ({MAXK * APPS_C} lanes a propagate)", flush=True)
+    queries = keyword_queries(np.random.default_rng(3), 64, MAXK)
+    make = lambda b: make_keyword_engine(g, tokens, capacity=APPS_C, delta_max=3, backend=b)
+    res, launches, rows = both_plans("keyword", make, queries)
+    src, dst, _ = g._edges_np()
+    rev = csr_matrix((np.ones(len(src)), (dst, src)), shape=(g.n, g.n))
+    for q, kws in enumerate(queries[:8]):
+        hops = []
+        for k in kws[kws >= 0]:
+            hits = np.nonzero((tokens == k).any(1))[0]
+            hops.append(dijkstra(rev, indices=hits, min_only=True, unweighted=True, limit=3)
+                        if len(hits) else np.full(g.n, np.inf))
+        hops = np.stack(hops)
+        root = np.isfinite(hops).all(0)
+        total = np.where(root, np.where(root, hops, 0).sum(0), INF).astype(np.int64)
+        order = np.argsort(total, kind="stable")[:16]
+        r = res[q]
+        if (int(r["num_roots"]) != int(root.sum())
+                or not np.array_equal(r["top_roots"], order)
+                or not np.array_equal(r["top_scores"], total[order])):
+            fail(f"keyword query {kws}: {r} differs from the oracle ({int(root.sum())} "
+                 f"roots, {order}, {total[order]})")
+    print("  keyword: cuda == coo on all 64 answers; 8 match a multi-source Dijkstra "
+          "(num_roots, top roots, top scores)", flush=True)
+    return launches, rows
+
+
+def app_reach():
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import breadth_first_order
+
+    from repro_torch.apps.reach import build_reach_index, make_reach_engine, scc_condense
+    from repro_torch.core.graph import random_dag
+
+    g0, dt = sync_time(lambda: random_dag(MAIN_N, 2.5, seed=0, device="cuda"))
+    (comp, dag), scc_s = sync_time(lambda: scc_condense(g0))
+    if dag.n_real != g0.n_real:
+        fail(f"random_dag: {dag.n_real} SCCs for {g0.n_real} vertices")
+    idx, idx_s = sync_time(lambda: build_reach_index(dag))
+    print(f"phase 5 reach: random_dag({MAIN_N}, 2.5): {g0.num_edges} edges in {dt:.2f} s; "
+          f"scc_condense {scc_s:.2f} s ({dag.n_real} singleton SCCs); build_reach_index "
+          f"{idx_s:.2f} s (longest path {int(idx.level.max())}); C={APPS_C}", flush=True)
+    src, dst, _ = g0._edges_np()
+    adj = csr_matrix((np.ones(len(src)), (src, dst)), shape=(g0.n, g0.n))
+    reached = lambda s: breadth_first_order(adj, int(s), return_predecessors=False)
+    # 256 uniform pairs (almost none reachable on this DAG) and 64 pairs whose
+    # t a host BFS from s reaches, which the labels and the BiBFS must find
+    rng = np.random.default_rng(1)
+    pairs0 = [tuple(p) for p in rng.integers(0, g0.n_real, (256, 2))]
+    while len(pairs0) < 320:
+        s = int(rng.integers(g0.n_real))
+        out = reached(s)[1:]
+        if len(out):
+            pairs0.append((s, int(out[rng.integers(len(out))])))
+    pairs0 = np.asarray(pairs0)
+    pairs = comp[pairs0].astype(np.int32)
+    make = lambda b: make_reach_engine(dag, idx, capacity=APPS_C, backend=b)
+    res, launches, rows = both_plans("reach", make, pairs)
+    for q, (s, t) in enumerate(pairs0):
+        want = bool(np.isin(t, reached(s)))
+        if bool(res[q]["reach"]) != want:
+            fail(f"reach({s},{t}) = {bool(res[q]['reach'])}, BFS says {want}")
+    hits = sum(bool(r["reach"]) for r in res.values())
+    print(f"  reach: cuda == coo on all {len(pairs)} answers ({hits} reachable), and all "
+          "match breadth_first_order from s on the uncondensed graph", flush=True)
+    return launches, rows
+
+
+def xml_oracle(parent: np.ndarray, level: np.ndarray, tokens: np.ndarray, kws):
+    """SLCA, ELCA and MaxMatch masks, bottom-up and top-down level by level
+    (the tests/test_xmlkw.py oracles in numpy)."""
+    n = len(parent)
+    own = np.zeros(n, np.int64)
+    for i, k in enumerate(kws):
+        own |= (tokens[:n] == k).any(1).astype(np.int64) << i
+    kid = np.nonzero(parent >= 0)[0]
+    K = own.copy()
+    for lvl in range(int(level.max()), 0, -1):
+        vs = np.nonzero(level == lvl)[0]
+        np.bitwise_or.at(K, parent[vs], K[vs])
+    full = (1 << len(kws)) - 1
+    cover = K == full
+    covered_kid = np.zeros(n, bool)
+    covered_kid[parent[kid[cover[kid]]]] = True
+    slca = cover & ~covered_kid
+    acc = own.copy()
+    part = kid[K[kid] != full]
+    np.bitwise_or.at(acc, parent[part], K[part])
+    elca = acc == full
+    present = np.zeros(n, np.int64)  # the bitmap values among each vertex's children
+    np.bitwise_or.at(present, parent[kid], np.int64(1) << K[kid])
+    sib = present[np.maximum(parent, 0)]
+    dominated = np.zeros(n, bool)
+    for b in range(full + 1):
+        dominated |= ((K & b) == K) & (K != b) & ((sib >> b) & 1).astype(bool)
+    dominated &= parent >= 0
+    kept = slca.copy()
+    for lvl in range(1, int(level.max()) + 1):
+        vs = np.nonzero(level == lvl)[0]
+        kept[vs] |= kept[parent[vs]] & ~dominated[vs]
+    return dict(slca=slca, elca=elca, labeled=kept)
+
+
+def app_xml():
+    from repro_torch.apps import xmlkw
+    from repro_torch.apps.keyword import make_vertex_text
+    from repro_torch.core.graph import random_tree
+
+    (tree, parent), dt = sync_time(
+        lambda: random_tree(MAIN_N, max_fanout=8, seed=0, device="cuda"))
+    tokens = make_vertex_text(MAIN_N, 10_000, 4, seed=1)
+    idx, idx_s = sync_time(lambda: xmlkw.build_xml_index(parent, tokens, tree.n,
+                                                         device="cuda"))
+    level = idx.level.cpu().numpy()[:MAIN_N]
+    print(f"phase 5 xml: random_tree({MAIN_N}, 8) in {dt:.2f} s (depth {int(level.max())}); "
+          f"build_xml_index {idx_s:.2f} s; C={APPS_C}", flush=True)
+    queries = keyword_queries(np.random.default_rng(4), 32, xmlkw.MAXK)
+    launches, rows = 0, []
+    for name, path, keys in (("SLCANaive", "slca_naive", ("slca",)),
+                             ("SLCALevelAligned", "slca_level_aligned", ("slca", "elca")),
+                             ("MaxMatch", "maxmatch", ("labeled",))):
+        cls = getattr(xmlkw, name)
+        make = lambda b: xmlkw.make_xml_engine(cls, tree, idx, capacity=APPS_C, backend=b)
+        res, n, r = both_plans(path, make, queries)
+        launches += n
+        rows += r
+        for q, kws in enumerate(queries[:4]):
+            want = xml_oracle(parent, level, tokens, [int(k) for k in kws if k >= 0])
+            for key in keys:
+                if not np.array_equal(np.asarray(res[q][key])[:MAIN_N], want[key]):
+                    fail(f"{name} query {kws}: {key} differs from the oracle")
+        print(f"  {name}: cuda == coo on all 32 answers; 4 match the oracle "
+              f"({', '.join(keys)})", flush=True)
+    return launches, rows
+
+
+def phase_apps(g_main):
+    """Phase 5: each query class through cuda and coo, checked."""
+    t0 = time.perf_counter()
+    launches, rows = 0, []
+    for app in (app_terrain, lambda: app_keyword(g_main), app_reach, app_xml):
+        t = time.perf_counter()
+        n, r = app()
+        launches += n
+        rows += r
+        print(f"  {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phase 5: {launches} kernel launches in the cuda runs; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -512,11 +940,17 @@ def main():
         if "Compiling entry" in text or "Used" in text or "spill" in text:
             print(f"  {text.strip()}", flush=True)
     max_err = phase_kernel_parity()
-    g, pairs, launches = phase_main_path()
+    phase_kernel_parity_apps()
+    g, pairs, launches, paths = phase_main_path()
+    timing = phase_timing(g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    app_launches, app_paths = phase_apps(g)
     row = dict(name="propagate_blocks", route="cuda", layout="packed",
                source="src/repro_torch/csrc/frontier.cu",
                replaces="src/repro/kernels/frontier.py:138",
-               launches=launches, max_abs_err=max_err, **phase_timing(g))
+               launches=launches + app_launches, max_abs_err=max_err, **timing,
+               paths=paths + app_paths)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))

@@ -15,7 +15,7 @@ labels (folded into admission), then a BiBFS over the non-hub induced
 subgraph with the early cutoff at superstep 1 + floor(d_ub / 2).
 
 Incremental maintenance and the durable store wait for later slices
-(ROADMAP.md §1 items 7 and 8).
+(ROADMAP.md §1, *Mutable graphs* and *Store, journal and recovery*).
 """
 from __future__ import annotations
 
@@ -101,6 +101,9 @@ class HubLabelBFS(VertexProgram):
         pre = pre | (newly & (got_f > 0))
         done = ~newly.any(-1)
         return dict(dist=dist, pre=pre, frontier=newly), done
+
+    def frontier_of(self, state):
+        return state["frontier"]
 
     def extract(self, state, query):
         return dict(dist=state["dist"], pre=state["pre"])
@@ -193,6 +196,9 @@ class Hub2PPSP(VertexProgram):
         done = (bibest < INF) | cutoff | dead
         return dict(ds=ds, dt=dt, ff=ff, fb=fb, d_ub=state["d_ub"],
                     bibest=bibest), done
+
+    def frontier_of(self, state):
+        return dict(ff=state["ff"], fb=state["fb"])
 
     def extract(self, state, query):
         visited = ((state["ds"] < INF) | (state["dt"] < INF)).sum(-1, dtype=torch.int32)

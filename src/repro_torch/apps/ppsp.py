@@ -53,6 +53,9 @@ class BFSProgram(VertexProgram):
         done = reached_t | ~newly.any(-1)
         return dict(dist=dist, frontier=newly), done
 
+    def frontier_of(self, state):
+        return state["frontier"]
+
     def extract(self, state, query):
         t = query[:, 1].long()
         return dict(dist=state["dist"].gather(1, t[:, None])[:, 0],
@@ -86,6 +89,9 @@ class BiBFSProgram(VertexProgram):
         dead = ~new_f.any(-1) | ~new_b.any(-1)  # a direction went silent
         done = bi_reached | dead
         return dict(ds=ds, dt=dt, ff=new_f, fb=new_b, best=best), done
+
+    def frontier_of(self, state):
+        return dict(ff=state["ff"], fb=state["fb"])
 
     def extract(self, state, query):
         return dict(dist=torch.clamp(state["best"], max=INF),

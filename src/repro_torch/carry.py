@@ -1,8 +1,10 @@
 """Carry state built elsewhere into the port.
 
 Each function takes a dict of numpy arrays (and ints) keyed by the JAX
-package's dataclass field names — ``Graph``, ``BlockSparse``, ``HubIndex``
-— and returns the port's object on ``device``.  Fields the port does not
+package's dataclass field names — ``Graph``, ``BlockSparse``,
+``HubIndex``, ``ReachIndex``, ``XMLIndex`` — or the arrays themselves
+(an ``InvertedIndex``'s tokens, terrain coords), and returns the port's
+object on ``device``.  Fields the port does not
 hold yet (mutation lineage, capacity padding) are ignored.  With this a
 table or index one package built can be queried by the other, so query
 parity is testable apart from build parity.
@@ -14,6 +16,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.apps.hub2 import HubIndex
+from repro_torch.apps.keyword import InvertedIndex
+from repro_torch.apps.reach import ReachIndex
+from repro_torch.apps.xmlkw import XMLIndex
 from repro_torch.core.graph import BlockSparse, Graph
 
 
@@ -48,3 +53,25 @@ def hub_index_from_numpy(d: dict, device=None) -> HubIndex:
     dev = resolve_device(device)
     return HubIndex(hub_ids=_t(d["hub_ids"], dev), is_hub=_t(d["is_hub"], dev),
                     hub_dist=_t(d["hub_dist"], dev), core=_t(d["core"], dev))
+
+
+def reach_index_from_numpy(d: dict, device=None) -> ReachIndex:
+    dev = resolve_device(device)
+    return ReachIndex(**{k: _t(d[k], dev)
+                         for k in ("level", "pre", "yes_hi", "post", "no_lo")})
+
+
+def xml_index_from_numpy(d: dict, device=None) -> XMLIndex:
+    dev = resolve_device(device)
+    return XMLIndex(tokens=_t(d["tokens"], dev), level=_t(d["level"], dev),
+                    parent=_t(d["parent"], dev))
+
+
+def inverted_index_from_numpy(tokens, device=None) -> InvertedIndex:
+    """The token table (V, T) int32 of the JAX ``InvertedIndex.tokens``."""
+    return InvertedIndex(_t(tokens, resolve_device(device)))
+
+
+def coords_from_numpy(coords, device=None) -> torch.Tensor:
+    """Terrain vertex positions (V, 3) float32, the terrain engine's index."""
+    return _t(np.asarray(coords, np.float32), resolve_device(device))

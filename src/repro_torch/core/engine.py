@@ -36,23 +36,21 @@ from repro_torch import resolve_device
 from repro_torch.core.graph import Graph
 from repro_torch.core.runtime import (
     DONE, QueryTimeoutError, ResumeAdmission, RoundOutcome, SlotProgram,
-    SlotRuntime, SlotStats, default_cache_key, to_numpy, tree_map)
+    SlotRuntime, SlotStats, default_cache_key, to_numpy, tree_leaves, tree_map)
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import ops
 
-# Engine options of the JAX package that later slices port, with the
-# ROADMAP.md item that carries each.
+# Engine options of the JAX package that later slices port, with the title
+# of the ROADMAP.md §1 queue item that carries each.
 _NOT_PORTED = {
-    "legacy": "§1 item 4 (legacy=True A/B baseline)",
-    "mesh": "§1 item 10 (mesh mode)",
-    "preemptive": "§1 item 7 (preemption)",
-    "journal": "§1 item 7 (durability and recovery)",
-    "arg_carried": "§1 item 8 (mutable graphs)",
-    "warmup": "§1 item 8 (mutable graphs)",
-    "index_fn": "§1 item 8 (mutable graphs)",
-    "gather_edges": "§1 item 2 (coo_gated / gather_edges)",
-    "track_frontier": "§1 item 4 (track_frontier)",
-    "propagate_override": "§1 item 4 (propagate_override)",
+    "legacy": "Legacy A/B baseline",
+    "mesh": "Mesh mode",
+    "preemptive": "Preemption",
+    "journal": "Store, journal and recovery",
+    "arg_carried": "Mutable graphs",
+    "warmup": "Mutable graphs",
+    "index_fn": "Mutable graphs",
+    "gather_edges": "Gated COO",
 }
 
 
@@ -83,6 +81,10 @@ class VertexProgram:
     ``superstep(state, ctx)``       -> (state, done (C,) bool) — one Pregel
                                        superstep for every slot.
     ``extract(state, query)``       -> small result pytree, leading axis C.
+    ``frontier_of(state)``          -> optional pytree of (C, ...) bool masks:
+                                       the vertices each slot activates next
+                                       superstep; the engine counts them per
+                                       round with ``track_frontier=True``.
     """
 
     def init(self, graph: Graph, query, index=None):
@@ -94,11 +96,18 @@ class VertexProgram:
     def extract(self, state, query):
         raise NotImplementedError
 
+    def frontier_of(self, state):
+        return None
+
 
 @dataclasses.dataclass
 class EngineStats(SlotStats):
     """Shared lifecycle counters under the engine's names: ``super_rounds``
     and ``barriers`` both read the runtime's round counter."""
+
+    # per-round active frontier vertex count, only when track_frontier=True
+    # (one extra readback per round: diagnostics, not the hot path)
+    frontier_active: list = dataclasses.field(default_factory=list)
 
     @property
     def super_rounds(self) -> int:
@@ -128,14 +137,20 @@ class QuegelEngine(SlotProgram):
                  may be a Graph or (Graph, blocks).
     steps_per_round : k supersteps per round, one sync per round.
     gate       : sparsity gating on the tile plans (False: dense baseline).
+    track_frontier : after each round, append the live slots' active-vertex
+                 count (summed over ``program.frontier_of``) to
+                 ``EngineStats.frontier_active`` (one extra readback).
+    propagate_override : {view: callable (sr, x, frontier) -> y}, each
+                 wrapped in ``ops.CallableBackend`` in place of that view's
+                 backend.
     scheduler, result_cache, max_retries : passed to the SlotRuntime.
     device     : where the slot table and graph live; ``cuda`` unless the
                  caller passes another device.  Raises without a GPU.
 
     The JAX engine's ``legacy``, ``mesh``, ``preemptive``, ``journal``,
-    ``arg_carried``, ``warmup``, ``index_fn``, ``gather_edges``,
-    ``track_frontier`` and ``propagate_override`` options raise
-    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    ``arg_carried``, ``warmup``, ``index_fn`` and ``gather_edges`` options
+    raise ``NotImplementedError`` naming the ROADMAP.md §1 queue item that
+    ports them.
     """
 
     def __init__(
@@ -152,6 +167,8 @@ class QuegelEngine(SlotProgram):
         example_query: Any = None,
         steps_per_round: int = 1,
         gate: bool = True,
+        track_frontier: bool = False,
+        propagate_override: Optional[dict] = None,
         scheduler: Any = "fifo",
         result_cache: Optional[int] = None,
         max_retries: int = 2,
@@ -163,7 +180,7 @@ class QuegelEngine(SlotProgram):
                 raise TypeError(f"QuegelEngine got an unexpected argument {name!r}")
             if val:
                 raise NotImplementedError(
-                    f"{name}= is not ported yet: ROADMAP.md {_NOT_PORTED[name]}")
+                    f"{name}= is not ported yet: ROADMAP.md §1, *{_NOT_PORTED[name]}*")
         if example_query is None:
             raise ValueError("example_query required to shape the slot table")
         self.device = resolve_device(device)
@@ -191,6 +208,9 @@ class QuegelEngine(SlotProgram):
             name: ops.make_backend(backend, g_, blocks=b_, block=block, gate=gate)
             for name, (g_, b_) in views.items()
         }
+        for name, fn in (propagate_override or {}).items():
+            self._backends[name] = ops.CallableBackend(fn)
+        self.track_frontier = bool(track_frontier)
         self.runtime = SlotRuntime(
             self, self.capacity, scheduler=scheduler, stats=EngineStats(),
             cache_size=result_cache, max_retries=max_retries,
@@ -263,7 +283,7 @@ class QuegelEngine(SlotProgram):
         for q in admitted.values():
             if isinstance(q, ResumeAdmission):
                 raise NotImplementedError(
-                    "resume admission is not ported yet (ROADMAP.md §1 item 7)")
+                    "resume admission is not ported yet: ROADMAP.md §1, *Preemption*")
         rows = sorted(admitted)
         S = self._slots
         queries = self._to_device(
@@ -318,6 +338,19 @@ class QuegelEngine(SlotProgram):
         """Budget-exhausted queries (TIMEOUT): clear device liveness."""
         idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
         self._slots["live"].index_fill_(0, idx, False)
+
+    def slot_observe(self) -> None:
+        """With ``track_frontier``: the live slots' active-vertex count,
+        summed over every leaf of ``program.frontier_of``."""
+        if not self.track_frontier:
+            return
+        S = self._slots
+        front = self.program.frontier_of(S["state"])
+        if front is None:
+            return
+        leaves = tree_leaves(front)
+        per_slot = sum(leaf.reshape(self.capacity, -1).sum(-1) for leaf in leaves)
+        self.stats.frontier_active.append(int(torch.where(S["live"], per_slot, 0).sum()))
 
     def cache_key(self, query) -> str:
         """Cache keys are prefixed by the graph's content hash."""

@@ -438,3 +438,93 @@ def multi_component_graph(n_components: int, comp_size: int, avg_deg: float,
     key = src2.astype(np.int64) * n + dst2
     _, idx = np.unique(key, return_index=True)
     return Graph.from_edges(src2[idx], dst2[idx], n, device=device)
+
+
+def random_dag(n: int, avg_deg: float, seed: int = 0, device=None) -> Graph:
+    """DAG via random topological order — the reachability-query substrate."""
+    rng = np.random.default_rng(seed)
+    e = int(n * avg_deg)
+    a = rng.integers(0, n, e).astype(np.int32)
+    b = rng.integers(0, n, e).astype(np.int32)
+    src, dst = np.minimum(a, b), np.maximum(a, b)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    key = src.astype(np.int64) * n + dst
+    _, idx = np.unique(key, return_index=True)
+    return Graph.from_edges(src[idx], dst[idx], n, device=device)
+
+
+def random_tree(n: int, max_fanout: int = 8, seed: int = 0, deep: bool = False,
+                device=None) -> tuple[Graph, np.ndarray]:
+    """Rooted tree (child->parent edges) modeling an XML document.
+
+    Default is shallow (parent drawn uniformly from earlier vertices →
+    O(log n) depth, like real XML); ``deep=True`` uses a locality window
+    giving O(n) depth.  Returns the graph with edges child->parent (the
+    direction SLCA/ELCA bitmaps flow) and the parent array (parent[0] =
+    -1).  One ``rng.integers`` draw per vertex, as the reference draws:
+    a vectorized draw would give another tree.
+    """
+    rng = np.random.default_rng(seed)
+    parent = np.full(n, -1, dtype=np.int32)
+    for v in range(1, n):
+        lo = max(0, v - max_fanout * 4) if deep else 0
+        parent[v] = rng.integers(lo, v)
+    src = np.arange(1, n, dtype=np.int32)
+    g = Graph.from_edges(src, parent[1:], n, device=device)
+    return g, parent
+
+
+def grid_terrain(rows: int, cols: int, eps_subdiv: int = 1, seed: int = 0,
+                 device=None) -> tuple[Graph, np.ndarray]:
+    """The paper's §5.3 terrain network: an elevation mesh with per-cell
+    shortcut edges (diagonals) and 3D-Euclidean float32 edge weights.
+
+    Returns (graph, coords), coords (n, 3) float32 numpy positions.
+    ``eps_subdiv`` > 1 splits each cell edge, adding the shortcut vertices
+    of the paper's Fig. 4(b).
+    """
+    rng = np.random.default_rng(seed)
+    r = rows * eps_subdiv - (eps_subdiv - 1)
+    c = cols * eps_subdiv - (eps_subdiv - 1)
+    # smooth hills plus mild noise, bilinearly interpolated at the
+    # subdivided resolution
+    yy0, xx0 = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    elev = (
+        12.0 * np.sin(yy0 / 6.0) * np.cos(xx0 / 7.0)
+        + 6.0 * np.sin((yy0 + xx0) / 11.0)
+        + rng.random((rows, cols)) * 1.5
+    ).astype(np.float32)
+    yi = np.linspace(0, rows - 1, r)
+    xi = np.linspace(0, cols - 1, c)
+    y0 = np.clip(yi.astype(int), 0, rows - 2)
+    x0 = np.clip(xi.astype(int), 0, cols - 2)
+    fy = (yi - y0)[:, None]
+    fx = (xi - x0)[None, :]
+    z = (
+        elev[y0][:, x0] * (1 - fy) * (1 - fx)
+        + elev[y0 + 1][:, x0] * fy * (1 - fx)
+        + elev[y0][:, x0 + 1] * (1 - fy) * fx
+        + elev[y0 + 1][:, x0 + 1] * fy * fx
+    ).astype(np.float32)
+    spacing = 10.0 / eps_subdiv  # 10 m sampling interval, subdivided
+    ys, xs = np.meshgrid(np.arange(r), np.arange(c), indexing="ij")
+    coords = np.stack(
+        [xs.ravel() * spacing, ys.ravel() * spacing, z.ravel()], axis=1
+    ).astype(np.float32)
+    n = r * c
+    src_l, dst_l = [], []
+    # 8-connected: horizontal, vertical, both diagonals (cell shortcuts)
+    for dy, dx in ((0, 1), (1, 0), (1, 1), (1, -1)):
+        y = np.arange(max(0, -dy), r - max(0, dy))
+        x = np.arange(max(0, -dx), c - max(0, dx))
+        yy, xx = np.meshgrid(y, x, indexing="ij")
+        a = (yy * c + xx).ravel()
+        b = ((yy + dy) * c + xx + dx).ravel()
+        src_l += [a, b]
+        dst_l += [b, a]
+    src = np.concatenate(src_l).astype(np.int32)
+    dst = np.concatenate(dst_l).astype(np.int32)
+    w = np.linalg.norm(coords[src] - coords[dst], axis=1).astype(np.float32)
+    g = Graph.from_edges(src, dst, n, w=w, weight_dtype=np.float32, device=device)
+    return g, coords

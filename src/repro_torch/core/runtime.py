@@ -19,7 +19,8 @@ per-query superstep budgets with TIMEOUT eviction, an opt-in result cache,
 non-finite quarantine, and the open-loop ``pump``/``poll`` face.
 
 Preemption, the query journal and snapshots are not ported yet
-(ROADMAP.md §1 item 7); their arguments raise ``NotImplementedError``.
+(ROADMAP.md §1, *Preemption* and *Store, journal and recovery*); their
+arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -268,7 +269,8 @@ _MISS = object()
 class ResultCache:
     """LRU of extracted results keyed by canonicalized query hash
     (``<graph content hash>:<query hash>`` for the engine).  Invalidation
-    by graph version comes with the mutation slice (ROADMAP.md §1)."""
+    by graph version comes with the mutation slice (ROADMAP.md §1,
+    *Mutable graphs*)."""
 
     def __init__(self, size: int):
         if size < 1:
@@ -292,6 +294,12 @@ class ResultCache:
         return len(self._d)
 
 
+# Runtime options of the JAX package that later slices port, with the title
+# of the ROADMAP.md §1 queue item that carries each.
+_NOT_PORTED = {"preemptive": "Preemption", "journal": "Store, journal and recovery",
+               "snapshot_every": "Store, journal and recovery"}
+
+
 # ------------------------------------------------------------------ protocol
 @dataclasses.dataclass
 class RoundOutcome:
@@ -305,7 +313,7 @@ class RoundOutcome:
 @dataclasses.dataclass
 class ResumeAdmission:
     """A suspended query re-entering through batched admission (the
-    preemption path, not ported yet: ROADMAP.md §1 item 7)."""
+    preemption path, not ported yet: ROADMAP.md §1, *Preemption*)."""
 
     query: Any
     payload: Any
@@ -365,7 +373,7 @@ class SlotRuntime:
                           ("snapshot_every", snapshot_every)):
             if val:
                 raise NotImplementedError(
-                    f"{name}= is not ported yet (ROADMAP.md §1 item 7)")
+                    f"{name}= is not ported yet: ROADMAP.md §1, *{_NOT_PORTED[name]}*")
         self.program = program
         self.capacity = int(capacity)
         self.scheduler = make_scheduler(scheduler)

@@ -33,6 +33,11 @@ from repro_torch.core.semiring import BY_NAME, Semiring
 from repro_torch.kernels import frontier, ref
 
 
+# Backends of the JAX package that later slices port, with the title of the
+# ROADMAP.md §1 queue item that carries each.
+_NOT_PORTED = {"coo_gated": "Gated COO", "sharded": "Mesh mode"}
+
+
 def block_activity(bs: Union[BlockSparse, PackedBlocks],
                    mask: Optional[torch.Tensor]) -> torch.Tensor:
     """(nb, max_bpr) bool — which adjacency tiles can contribute.  Reads
@@ -69,15 +74,15 @@ class PropagateBackend:
 
     def refresh(self, graph: Graph, delta=None):
         raise NotImplementedError(
-            "graph mutation is not ported yet (ROADMAP.md §1 item 8)")
+            "graph mutation is not ported yet: ROADMAP.md §1, *Mutable graphs*")
 
     def as_args(self, graph_carrier=None, *, slot_cap=None):
         raise NotImplementedError(
-            "argument-carried editions are not ported yet (ROADMAP.md §1 item 8)")
+            "argument-carried editions are not ported yet: ROADMAP.md §1, *Mutable graphs*")
 
     def from_args(self, args):
         raise NotImplementedError(
-            "argument-carried editions are not ported yet (ROADMAP.md §1 item 8)")
+            "argument-carried editions are not ported yet: ROADMAP.md §1, *Mutable graphs*")
 
 
 class CooBackend(PropagateBackend):
@@ -242,10 +247,9 @@ def make_backend(
             "backend 'pallas' is the JAX package's TPU kernel; the port's "
             "kernel-backed tile plan is 'cuda'"
         )
-    if spec in ("coo_gated", "sharded"):
+    if spec in _NOT_PORTED:
         raise NotImplementedError(
-            f"backend {spec!r} is not ported yet (ROADMAP.md §1 items 2 and 10)"
-        )
+            f"backend {spec!r} is not ported yet: ROADMAP.md §1, *{_NOT_PORTED[spec]}*")
     if spec in ("blocks_ref", "cuda"):
         if blocks is None and strict_tables:
             raise ValueError(

@@ -3,6 +3,8 @@ programs, k masked supersteps, one sync per round) against the JAX
 engine on the same graph and queries — identical qid->result maps,
 statuses and round/barrier/superstep counters."""
 import functools
+import re
+from pathlib import Path
 
 import pytest
 
@@ -11,10 +13,15 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro.apps import ppsp as jppsp
-from repro.core.graph import random_graph
+from repro.apps import reach as jreach
+from repro.core.graph import random_dag, random_graph
 
-from repro_torch.apps import ppsp
+import repro_torch
+from repro_torch.apps import ppsp, reach
+from repro_torch.core import engine as tengine
+from repro_torch.core import runtime as truntime
 from repro_torch.core.engine import QuegelEngine
+from repro_torch.kernels import ops, ref
 
 from _torch_common import assert_same_results, port_graph
 
@@ -148,9 +155,110 @@ def test_pump_poll_and_interactive_match_jax():
 
 @pytest.mark.parametrize("option", [
     "legacy", "mesh", "preemptive", "journal", "arg_carried", "warmup",
-    "index_fn", "gather_edges", "track_frontier", "propagate_override"])
+    "index_fn", "gather_edges"])
 def test_unported_options_raise(option):
     g = port_graph(_graph())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QuegelEngine(g, ppsp.BFSProgram(), 2, example_query=np.zeros(2, np.int32),
                      device="cpu", **{option: True})
+
+
+def _roadmap_queue() -> str:
+    """The text of ROADMAP.md §1's queue of modules still to port."""
+    text = (Path(repro_torch.__file__).resolve().parents[2] / "ROADMAP.md").read_text()
+    sec = text[text.index("### 1. Modules to port"):text.index("### 2.")]
+    return sec[sec.index("**Queue"):]
+
+
+def test_not_ported_messages_name_roadmap_titles():
+    """Every option or backend that is not ported names a §1 queue item by
+    its title, and every such title heads an item of the queue."""
+    queue = _roadmap_queue()
+    titles = (set(tengine._NOT_PORTED.values()) | set(ops._NOT_PORTED.values())
+              | set(truntime._NOT_PORTED.values()))
+    pkg = Path(repro_torch.__file__).resolve().parent
+    for path in pkg.rglob("*.py"):
+        text = path.read_text()
+        assert not re.search(r"§1 items? \d", text), path
+        for ref_ in re.findall(r"ROADMAP\.md §1,([^)\"]*)", text):
+            titles |= {t for t in re.findall(r"\*([^*]+)\*", ref_) if "{" not in t}
+    assert len(titles) >= 5, titles
+    for title in titles:
+        assert f"**{title}**" in queue, title
+    with pytest.raises(NotImplementedError, match=r"\*Preemption\*"):
+        truntime.SlotRuntime(None, 2, preemptive=True)
+
+
+# ------------------------------------------------ engine diagnostics
+@functools.lru_cache(maxsize=None)
+def _dag():
+    return random_dag(80, 2.5, seed=13)
+
+
+def _frontier_run(eng, pairs):
+    for p in pairs:
+        eng.submit(p)
+    res = eng.run_until_drained()
+    return res, list(eng.stats.frontier_active)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_frontier(prog, k):
+    if prog == "bfs":
+        eng = jppsp.make_bfs_engine(_graph(), capacity=3, steps_per_round=k,
+                                    track_frontier=True)
+        pairs = _pairs(10, seed=4)
+    else:
+        eng = jreach.make_reach_engine(_dag(), jreach.build_reach_index(_dag()), capacity=3,
+                                       steps_per_round=k, track_frontier=True)
+        pairs = np.random.default_rng(4).integers(0, 80, (10, 2)).astype(np.int32)
+    return _frontier_run(eng, pairs), pairs
+
+
+@pytest.mark.parametrize("prog", ["bfs", "reach"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("backend", ["coo", "cuda"])
+def test_track_frontier_matches_jax(prog, k, backend):
+    """Per round, the live slots' active vertices summed over
+    ``frontier_of`` (BFS: one mask; reach: forward and backward)."""
+    (jres, jfront), pairs = _jax_frontier(prog, k)
+    kw = dict(capacity=3, steps_per_round=k, track_frontier=True, backend=backend,
+              block=16, device="cpu")
+    if prog == "bfs":
+        eng = ppsp.make_bfs_engine(port_graph(_graph()), **kw)
+    else:
+        dag = port_graph(_dag())
+        eng = reach.make_reach_engine(dag, reach.build_reach_index(dag), **kw)
+    res, front = _frontier_run(eng, pairs)
+    assert_same_results(res, jres)
+    assert front == jfront and len(front) == eng.stats.rounds
+    if k == 1:  # at k = 2 short queries finish inside a round and read 0
+        assert sum(front) > 0
+
+
+def test_track_frontier_off_records_nothing():
+    eng = ppsp.make_bfs_engine(port_graph(_graph()), capacity=3, device="cpu")
+    _frontier_run(eng, _pairs(4, seed=4))
+    assert eng.stats.frontier_active == []
+
+
+def test_propagate_override_matches_coo():
+    """A callable in place of a view's backend: wrapped in CallableBackend,
+    called for every propagate of that view, answers as ``coo``'s."""
+    g = port_graph(_graph())
+    calls = {"default": 0, "rev": 0}
+
+    def via(view, graph):
+        def fn(sr, x, frontier):
+            calls[view] += 1
+            return ref.propagate_coo(graph, sr, x, frontier)
+        return fn
+
+    pairs = _pairs(10, seed=6)
+    eng = ppsp.make_bibfs_engine(g, capacity=4, device="cpu", propagate_override={
+        "default": via("default", g), "rev": via("rev", g.reverse())})
+    assert all(isinstance(eng._backends[v], ops.CallableBackend) for v in calls)
+    res = _frontier_run(eng, pairs)[0]
+    want = _frontier_run(ppsp.make_bibfs_engine(g, capacity=4, device="cpu"), pairs)[0]
+    assert_same_results(res, want)
+    assert calls["default"] == calls["rev"] == eng.stats.rounds  # one superstep a round

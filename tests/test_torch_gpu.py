@@ -11,8 +11,9 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
-from repro_torch.apps import ppsp
-from repro_torch.core.graph import Graph, barabasi_albert, random_graph
+from repro_torch.apps import keyword, ppsp, reach, terrain, xmlkw
+from repro_torch.core.graph import (Graph, barabasi_albert, grid_terrain, random_dag,
+                                    random_graph, random_tree)
 from repro_torch.core.semiring import BY_NAME
 from repro_torch.kernels import frontier, ops
 
@@ -119,3 +120,50 @@ def test_engine_cuda_plan_launches_the_kernel(cuda):
             assert launched == 0
     for qid, r in results["coo"].items():
         assert int(results["cuda"][qid]["dist"]) == int(r["dist"])
+
+
+def _app_engine(app, backend, cuda):
+    """One small engine per query class of the second slice, and its
+    queries (seeded)."""
+    rng = np.random.default_rng(3)
+    kw = dict(capacity=4, backend=backend, block=16, device=cuda)
+    if app == "terrain":
+        g, coords = grid_terrain(20, 20, eps_subdiv=2, seed=0, device=cuda)
+        qs = rng.integers(0, g.n_real, (8, 2)).astype(np.int32)
+        return terrain.make_terrain_engine(g, coords, **kw), qs
+    if app == "reach":
+        dag = random_dag(600, 2.5, seed=0, device=cuda)
+        qs = rng.integers(0, dag.n_real, (24, 2)).astype(np.int32)
+        return reach.make_reach_engine(dag, reach.build_reach_index(dag), **kw), qs
+    qs = np.full((12, keyword.MAXK), -1, np.int32)
+    qs[:, :3] = rng.integers(0, 12, (12, 3))
+    qs[::2, 2] = -1
+    if app == "keyword":
+        g = barabasi_albert(800, 3, seed=1, device=cuda)
+        tokens = keyword.make_vertex_text(g.n, 200, 4, seed=2)
+        return keyword.make_keyword_engine(g, tokens, **kw), qs
+    tree, parent = random_tree(900, max_fanout=8, seed=0, device=cuda)
+    idx = xmlkw.build_xml_index(parent, keyword.make_vertex_text(900, 200, 4, seed=1),
+                                tree.n, device=cuda)
+    return xmlkw.make_xml_engine(getattr(xmlkw, app), tree, idx, **kw), qs
+
+
+@pytest.mark.parametrize("app", ["terrain", "keyword", "reach", "SLCANaive",
+                                 "SLCALevelAligned", "MaxMatch"])
+def test_app_cuda_plan_matches_coo(cuda, app):
+    """Each query class through the kernel: answers identical to coo's
+    (float32 terrain distances too: min is exact), at least one launch a
+    round."""
+    results = {}
+    for backend in ("coo", "cuda"):
+        eng, qs = _app_engine(app, backend, cuda)
+        for q in qs:
+            eng.submit(q)
+        before = frontier.propagate_blocks.launches
+        results[backend] = eng.run_until_drained()
+        launched = frontier.propagate_blocks.launches - before
+        assert (launched >= eng.stats.rounds > 0) if backend == "cuda" else launched == 0
+    assert sorted(results["coo"]) == sorted(results["cuda"])
+    for qid, r in results["coo"].items():
+        for k, v in r.items():
+            np.testing.assert_array_equal(results["cuda"][qid][k], v, err_msg=f"{qid} {k}")

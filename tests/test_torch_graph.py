@@ -49,6 +49,34 @@ def test_multi_component_graph_identical():
                        jgraph.multi_component_graph(4, 25, 2.0, seed=3))
 
 
+@pytest.mark.parametrize("n,avg_deg,seed", [(80, 2.5, 13), (500, 2.5, 0)])
+def test_random_dag_identical(n, avg_deg, seed):
+    assert_graph_equal(tgraph.random_dag(n, avg_deg, seed=seed, device="cpu"),
+                       jgraph.random_dag(n, avg_deg, seed=seed))
+
+
+@pytest.mark.parametrize("n,fanout,seed,deep", [(60, 4, 0, False), (200, 8, 2, False),
+                                                (150, 4, 1, True)])
+def test_random_tree_identical(n, fanout, seed, deep):
+    """The same parent array: one draw per vertex, as the reference draws."""
+    tg, tparent = tgraph.random_tree(n, max_fanout=fanout, seed=seed, deep=deep,
+                                     device="cpu")
+    jg, jparent = jgraph.random_tree(n, max_fanout=fanout, seed=seed, deep=deep)
+    assert tparent.dtype == jparent.dtype and tparent.tobytes() == jparent.tobytes()
+    assert_graph_equal(tg, jg)
+
+
+@pytest.mark.parametrize("rows,cols,eps,seed", [(12, 14, 2, 1), (9, 7, 1, 3), (6, 5, 3, 0)])
+def test_grid_terrain_identical(rows, cols, eps, seed):
+    """float32 Euclidean weights and coords byte for byte."""
+    tg, tcoords = tgraph.grid_terrain(rows, cols, eps_subdiv=eps, seed=seed, device="cpu")
+    jg, jcoords = jgraph.grid_terrain(rows, cols, eps_subdiv=eps, seed=seed)
+    assert tcoords.dtype == jcoords.dtype == np.float32
+    assert tcoords.tobytes() == jcoords.tobytes()
+    assert tg.w.dtype == torch.float32
+    assert_graph_equal(tg, jg)
+
+
 def test_reverse_padded_undirected_identical():
     jg = jgraph.random_graph(90, 3.0, seed=8)
     tg = port_graph(jg)

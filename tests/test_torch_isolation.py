@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 import repro_torch
-from repro_torch.apps import hub2, ppsp
+from repro_torch.apps import hub2, keyword, ppsp, reach, terrain, xmlkw
 from repro_torch.core import graph as tgraph
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
@@ -38,7 +38,7 @@ def test_importing_every_module_loads_no_jax():
                          cwd=SRC, capture_output=True, text=True, timeout=300,
                          check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["modules"] >= 14, got
+    assert got["modules"] >= 18, got
     assert got["bad"] == [], f"repro_torch imported {got['bad']}"
 
 
@@ -76,6 +76,30 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_gpu):
     assert int(eng.query(np.asarray([0, 0], np.int32))["dist"]) == 0
 
 
+def test_app_entry_points_refuse_the_cpu_unless_asked(no_gpu):
+    """The four query classes of the second slice, and their generators."""
+    for make in (lambda: tgraph.random_dag(30, 2.0),
+                 lambda: tgraph.random_tree(30),
+                 lambda: tgraph.grid_terrain(4, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    dag = tgraph.random_dag(30, 2.0, seed=1, device="cpu")
+    tree, parent = tgraph.random_tree(30, seed=1, device="cpu")
+    terr, coords = tgraph.grid_terrain(4, 4, device="cpu")
+    tokens = keyword.make_vertex_text(30, 5, 2)
+    idx = reach.build_reach_index(dag)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xmlkw.build_xml_index(parent, tokens, tree.n)
+    xidx = xmlkw.build_xml_index(parent, tokens, tree.n, device="cpu")
+    for make in (lambda **kw: terrain.make_terrain_engine(terr, coords, **kw),
+                 lambda **kw: keyword.make_keyword_engine(dag, tokens, **kw),
+                 lambda **kw: reach.make_reach_engine(dag, idx, **kw),
+                 lambda **kw: xmlkw.make_xml_engine(xmlkw.MaxMatch, tree, xidx, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(backend="cuda")
+        assert make(device="cpu").device.type == "cpu"
+
+
 def test_every_module_is_listed():
     """The walk above sees the whole tree the README describes."""
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
@@ -83,6 +107,8 @@ def test_every_module_is_listed():
                  "repro_torch.core.runtime", "repro_torch.core.engine",
                  "repro_torch.kernels.ref", "repro_torch.kernels.frontier",
                  "repro_torch.kernels.ops", "repro_torch.apps.ppsp",
-                 "repro_torch.apps.hub2", "repro_torch.configs.quegel",
+                 "repro_torch.apps.hub2", "repro_torch.apps.terrain",
+                 "repro_torch.apps.keyword", "repro_torch.apps.reach",
+                 "repro_torch.apps.xmlkw", "repro_torch.configs.quegel",
                  "repro_torch.carry"):
         assert want in names
