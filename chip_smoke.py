@@ -45,20 +45,39 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      version at these paths' shapes: Q in {32, 42, 72, 168} on a reversed
      graph with weight N (int32 min_plus), a grid_terrain graph (float32
      min_plus), a random_tree (max_right) and a random_dag (min_right).
+  6. fault tolerance, reusing phase 3's graph, rev view, pairs, packed
+     tables, Hub² index and answers and phase 5's terrain data, C=8 on
+     cuda: (6a) save_engine_store of the graph, rev view, tables and the
+     k=1000 index into a temp dir (at least 4 GB free), load_engine_store,
+     a BiBFS engine booted from it (0 table builds, the 256 answers of
+     phase 3) and load_or_build_hub_index (no rebuild); (6b) the 256 BiBFS
+     pairs with every live slot suspended at every round boundary; (6c)
+     terrain, sjf, k=4: 8 heavy pairs across the mesh then 16 light ones,
+     with and without preemption (every light before any heavy, identical
+     answers); (6d) run_with_recovery of the 256 pairs from the store, an
+     fsynced journal with a snapshot every 4 rounds, crashes injected at
+     rounds 5 and 17 (the result map of phase 3); (6e) terrain with qid 3
+     poisoned with NaN every round (POISONED, the other 7 as phase 5);
+     (6f) the supervisor's SIGKILL crash test on the card.  Results,
+     statuses and steps must be identical to the uninterrupted runs.
 Every cuda path runs with the kernel's launch counts set to 0 just before
 it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
 4th, 8th, ... launch of each (semiring, dtype, Q) that the path
-launched.  The last lines are the card, one JSON object
+launched (all but 6e, whose poisoned lanes are NaN).  The last lines are the card, one JSON object
 describing the kernel (its launches per path, semiring, dtype and Q
 under "paths"), and {"ok": true, "device": {...}}.
 """
 import collections
+import dataclasses
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -116,10 +135,8 @@ def take_counts():
     {(semiring, dtype, Q): launches}), and reset them to 0."""
     from repro_torch.kernels import frontier
 
-    f = frontier.propagate_blocks
-    out = (f.launches, dict(f.shapes))
-    f.launches = 0
-    f.shapes.clear()
+    out = (frontier.launches(), dict(frontier.propagate_blocks.shapes))
+    frontier.propagate_blocks.shapes.clear()
     return out
 
 
@@ -160,14 +177,14 @@ def check_launches(path: str, run, keys: set) -> None:
         return out
 
     f = frontier.propagate_blocks
-    saved = (f.launches, f.shapes.copy())
+    saved = f.shapes.copy()
     ops.CudaBackend._run = checked_run
     try:
         run()
         torch.cuda.synchronize()
     finally:
         ops.CudaBackend._run = orig
-        f.launches, f.shapes = saved  # a check, not the path
+        f.shapes = saved  # a check, not the path
     missing = set(keys) - set(checked)
     if missing:
         fail(f"{path}: no launch at {sorted(missing)} was held against the plain version")
@@ -367,13 +384,13 @@ def device_breakdown(run, wall_s: float, what: str):
     from repro_torch.kernels import frontier
 
     f = frontier.propagate_blocks
-    saved = (f.launches, f.shapes.copy())
+    saved = f.shapes.copy()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    f.launches, f.shapes = saved  # a measurement, not the path
+    f.shapes = saved  # a measurement, not the path
     dev = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -406,6 +423,7 @@ def run_main_path(g, pairs, backend: str) -> dict:
     from repro_torch.apps.hub2 import build_hub_index, make_hub2_engine
     from repro_torch.apps.ppsp import make_bibfs_engine
     from repro_torch.configs.quegel import QuegelConfig
+    from repro_torch.launch.supervise import _result_map
 
     cfg = QuegelConfig()
     kw = dict(backend=backend, block=cfg.block_size)
@@ -443,6 +461,11 @@ def run_main_path(g, pairs, backend: str) -> dict:
     take_counts()
     res, dt = sync_time(eng.run_until_drained)
     out["bibfs"] = res
+    # phase 6 reuses the uninterrupted answers, the rev view and the tables,
+    # kept on the host so that later phases' peak memory does not hold them
+    out["bibfs_map"] = _result_map(eng)
+    out["rev"] = eng.aux_graphs["rev"].to("cpu")
+    out["tables"] = tables_to(eng.export_tables(), "cpu")
     st = eng.stats
     rounds += st.rounds
     print(f"  [{backend}] batch BiBFS C={cfg.capacity}: {len(pairs)} queries, "
@@ -460,6 +483,7 @@ def run_main_path(g, pairs, backend: str) -> dict:
     idx, build_s = sync_time(build)
     out["index"] = {k: getattr(idx, k).cpu().numpy()
                     for k in ("hub_ids", "is_hub", "hub_dist", "core")}
+    out["hub_index"], out["build_s"] = idx.to("cpu"), build_s
     print(f"  [{backend}] Hub2 index build k={cfg.hub_k} C={cfg.capacity}: "
           f"{build_s:.3f} s wall (table build included), {launched('hub2_build')} "
           "kernel launches",
@@ -497,6 +521,11 @@ def run_main_path(g, pairs, backend: str) -> dict:
     if backend == "cuda":
         check_launches("hub2_build", rebuild, path_keys(paths, "hub2_build"))
     return out
+
+
+def tables_to(tables: dict, device) -> dict:
+    """{view: {semiring: table}} with every table on ``device``."""
+    return {v: {k: t.to(device) for k, t in d.items()} for v, d in tables.items()}
 
 
 def same_results(a: dict, b: dict) -> bool:
@@ -550,7 +579,7 @@ def phase_main_path():
             fail(f"hub_dist row {r} differs from host BFS")
     print("phase 3: cuda == coo on every answer and index array; 16 pairs "
           "and 3 hub rows match a host BFS", flush=True)
-    return g, pairs, launches, cuda["paths"]
+    return g, pairs, launches, cuda
 
 
 # ------------------------------------------------------------ phase 4
@@ -699,20 +728,21 @@ def run_app(path: str, make_engine, queries, backend: str) -> dict:
     rows = path_rows(path, shapes)
     if backend == "cuda":
         check_launches(path, redrain(eng, queries), path_keys(rows, path))
+    tables = eng.export_tables()
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(results=res, launches=launches, rows=rows)
+    return dict(results=res, launches=launches, rows=rows, tables=tables)
 
 
 def both_plans(path: str, make_engine, queries) -> tuple:
     """The same queries through cuda and coo; fails unless every answer is
-    identical.  Returns (cuda answers, launches, path rows)."""
+    identical.  Returns (cuda answers, launches, path rows, cuda tables)."""
     cuda = run_app(path, make_engine, queries, "cuda")
     coo = run_app(path, make_engine, queries, "coo")
     if not same_results(cuda["results"], coo["results"]):
         fail(f"{path}: cuda and coo answers differ")
-    return cuda["results"], cuda["launches"], cuda["rows"]
+    return cuda["results"], cuda["launches"], cuda["rows"], cuda["tables"]
 
 
 def keyword_queries(rng, count: int, maxk: int) -> np.ndarray:
@@ -725,7 +755,9 @@ def keyword_queries(rng, count: int, maxk: int) -> np.ndarray:
     return out
 
 
-def app_terrain():
+def app_terrain(keep: dict):
+    """Terrain through both plans; ``keep`` receives the graph, coords,
+    pairs, cuda answers and tables that phase 6 reuses."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
 
@@ -741,7 +773,9 @@ def app_terrain():
     pairs = np.random.default_rng(1).integers(0, g.n_real, (64, 2)).astype(np.int32)
     make = lambda b: make_terrain_engine(g, coords, capacity=APPS_C, backend=b,
                                          steps_per_round=TERRAIN_K)
-    res, launches, rows = both_plans("terrain", make, pairs)
+    res, launches, rows, tables = both_plans("terrain", make, pairs)
+    keep.update(g=g.to("cpu"), coords=coords, pairs=pairs, results=res,
+                tables=tables_to(tables, "cpu"))
     src, dst, w = g._edges_np()
     want = dijkstra(csr_matrix((w, (src, dst)), shape=(g.n, g.n)),
                     indices=pairs[:8, 0].astype(np.int64))
@@ -776,7 +810,7 @@ def app_keyword(g):
           f"C={APPS_C} ({MAXK * APPS_C} lanes a propagate)", flush=True)
     queries = keyword_queries(np.random.default_rng(3), 64, MAXK)
     make = lambda b: make_keyword_engine(g, tokens, capacity=APPS_C, delta_max=3, backend=b)
-    res, launches, rows = both_plans("keyword", make, queries)
+    res, launches, rows, _ = both_plans("keyword", make, queries)
     src, dst, _ = g._edges_np()
     rev = csr_matrix((np.ones(len(src)), (dst, src)), shape=(g.n, g.n))
     for q, kws in enumerate(queries[:8]):
@@ -830,7 +864,7 @@ def app_reach():
     pairs0 = np.asarray(pairs0)
     pairs = comp[pairs0].astype(np.int32)
     make = lambda b: make_reach_engine(dag, idx, capacity=APPS_C, backend=b)
-    res, launches, rows = both_plans("reach", make, pairs)
+    res, launches, rows, _ = both_plans("reach", make, pairs)
     for q, (s, t) in enumerate(pairs0):
         want = bool(np.isin(t, reached(s)))
         if bool(res[q]["reach"]) != want:
@@ -896,7 +930,7 @@ def app_xml():
                              ("MaxMatch", "maxmatch", ("labeled",))):
         cls = getattr(xmlkw, name)
         make = lambda b: xmlkw.make_xml_engine(cls, tree, idx, capacity=APPS_C, backend=b)
-        res, n, r = both_plans(path, make, queries)
+        res, n, r, _ = both_plans(path, make, queries)
         launches += n
         rows += r
         for q, kws in enumerate(queries[:4]):
@@ -910,10 +944,12 @@ def app_xml():
 
 
 def phase_apps(g_main):
-    """Phase 5: each query class through cuda and coo, checked."""
+    """Phase 5: each query class through cuda and coo, checked.  Returns
+    (launches, path rows, the terrain data phase 6 reuses)."""
     t0 = time.perf_counter()
-    launches, rows = 0, []
-    for app in (app_terrain, lambda: app_keyword(g_main), app_reach, app_xml):
+    launches, rows, terrain = 0, [], {}
+    for app in (lambda: app_terrain(terrain), lambda: app_keyword(g_main), app_reach,
+                app_xml):
         t = time.perf_counter()
         n, r = app()
         launches += n
@@ -921,7 +957,346 @@ def phase_apps(g_main):
         print(f"  {time.perf_counter() - t:.1f} s", flush=True)
     print(f"phase 5: {launches} kernel launches in the cuda runs; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return launches, rows
+    return launches, rows, terrain
+
+
+# ------------------------------------------------------------ phase 6
+FT_C = 8              # QuegelConfig.capacity
+SNAPSHOT_EVERY = 4    # journal snapshot cadence of 6d, in rounds
+CRASH_SEEDS = 1       # 6f's --seeds (2 took 83 s of phase 6's 122 s on the card)
+MIN_FREE_DISK = 4e9   # the Hub2 index alone is 1.31 GB on disk
+
+
+def same_tree(a, b) -> bool:
+    """Dataclasses, dicts and tensors equal leaf by leaf (torch.equal on
+    the same device and dtype), other leaves by ==."""
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            same_tree(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.device == b.device and torch.equal(a, b))
+    return a == b
+
+
+def bibfs_engine(g, rev, tables, **kw):
+    """A BiBFS engine on the card over prebuilt packed tables: it builds none."""
+    from repro_torch.apps.ppsp import BiBFSProgram
+    from repro_torch.core.engine import QuegelEngine
+
+    return QuegelEngine(g, BiBFSProgram(), FT_C, backend="cuda",
+                        blocks=tables["default"], aux_graphs={"rev": (rev, tables["rev"])},
+                        example_query=np.zeros(2, np.int32), **kw)
+
+
+def counted(path: str, run, paths: list):
+    """Drive one cuda path with the kernel's counts set to 0 just before and
+    read just after; fails unless it launched the kernel.  Returns what
+    ``run`` returned and the path's launches."""
+    take_counts()
+    out = run()
+    torch.cuda.synchronize()
+    n, shapes = take_counts()
+    if n == 0:
+        fail(f"{path}: the cuda run never launched the kernel")
+    paths.extend(path_rows(path, shapes))
+    return out, n
+
+
+def drain(eng, queries, each_round=None):
+    """Submit, then run round by round until idle, calling
+    ``each_round(runtime, round index)`` after each round; returns the
+    retirement order."""
+    for q in queries:
+        eng.submit(q)
+    return drain_submitted(eng, each_round)
+
+
+def drain_submitted(eng, each_round=None) -> list:
+    rt, order, r = eng.runtime, [], 0
+    while rt.pending() or rt.live.any():
+        order += [qid for qid, _, _ in rt.run_round() or []]
+        if each_round is not None:
+            each_round(rt, r)
+        r += 1
+    return order
+
+
+def ft_store(tmp, g, pairs, main, paths):
+    """6a: save the main graph, its rev view, the BiBFS engine's packed
+    tables and the Hub2 index; load them; boot an engine from them."""
+    from repro_torch.apps.hub2 import load_or_build_hub_index
+    from repro_torch.configs.quegel import QuegelConfig
+    from repro_torch.core.store import Store, load_engine_store, save_engine_store
+    from repro_torch.kernels import ops
+    from repro_torch.launch.supervise import _result_map
+
+    store = Store(os.path.join(tmp, "store"))
+    put = dict(graph=g, index=main["hub_index"], aux_graphs={"rev": main["rev"]},
+               tables=main["tables"])
+    _, put_s = sync_time(lambda: save_engine_store(store, g, **{
+        k: v for k, v in put.items() if k != "graph"}))
+    nbytes = sum(f.stat().st_size for f in Path(store.root).rglob("*") if f.is_file())
+    state, get_s = sync_time(lambda: load_engine_store(store, device="cuda"))
+    for name, want in put.items():
+        if not same_tree(state[name], want):
+            fail(f"6a: the loaded {name} differs from what was put")
+    for got, want in ((state["graph"], g), (state["aux_graphs"]["rev"], main["rev"])):
+        if got.content_hash() != want.content_hash():
+            fail("6a: a loaded graph's content_hash differs")
+    builds = [0]
+    orig = ops.CudaBackend._build
+
+    def build(self, sr):
+        builds[0] += 1
+        return orig(self, sr)
+
+    ops.CudaBackend._build = build
+    try:
+        eng = bibfs_engine(state["graph"], state["aux_graphs"]["rev"], state["tables"])
+        counted("ft_store_boot", lambda: drain(eng, pairs), paths)
+    finally:
+        ops.CudaBackend._build = orig
+    if builds[0] or _result_map(eng) != main["bibfs_map"]:
+        fail(f"6a: the booted engine built {builds[0]} tables or answered otherwise")
+    check_launches("ft_store_boot", lambda: drain(
+        bibfs_engine(state["graph"], state["aux_graphs"]["rev"], state["tables"]), pairs),
+        path_keys(paths, "ft_store_boot"))
+    cfg = QuegelConfig()
+    (idx, info), hit_s = sync_time(lambda: load_or_build_hub_index(
+        store, g, cfg.hub_k, capacity=cfg.capacity, backend="cuda", device="cuda"))
+    if info["built"] or info["index_rounds"] != 0 or not same_tree(idx, main["hub_index"]):
+        fail(f"6a: load_or_build_hub_index rebuilt or differs: {info}")
+    print(f"  6a store: {nbytes} bytes written in {put_s:.3f} s (put), loaded in "
+          f"{get_s:.3f} s (get), every array and content_hash equal; the booted engine "
+          f"built 0 tables and answered the {len(pairs)} pairs as phase 3; "
+          f"load_or_build_hub_index built=False, index_rounds=0 in {hit_s:.3f} s, index "
+          f"equal; phase 3's cuda Hub2 build {main['build_s']:.3f} s", flush=True)
+    return store
+
+
+def ft_suspend(g, pairs, main, paths) -> None:
+    """6b: every live slot suspended at every round boundary."""
+    from repro_torch.launch.supervise import _result_map
+
+    def suspending(tally):
+        def suspend_all(rt, r):
+            live = [s for s in range(rt.capacity) if rt.live[s]]
+            if live:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rt.suspend(live)  # ends in the device->host copy
+                tally["s"] += time.perf_counter() - t0
+                tally["n"] += len(live)
+                tally["calls"] += 1
+        return suspend_all
+
+    tally = dict(n=0, calls=0, s=0.0)
+    eng = bibfs_engine(g, main["rev"], main["tables"])
+    (_, wall) = sync_time(lambda: counted(
+        "ft_suspend", lambda: drain(eng, pairs, suspending(tally)), paths))
+    if _result_map(eng) != main["bibfs_map"]:
+        fail("6b: suspended results, statuses or steps differ from phase 3's")
+    if eng.stats.preemptions != tally["n"] or eng.stats.resumes != tally["n"]:
+        fail(f"6b: {tally['n']} suspensions but {eng.stats.resumes} resumes")
+    row_bytes = sum(t[0].numel() * t.element_size() for t in eng._slots["state"].values())
+    check_launches("ft_suspend", lambda: drain(
+        bibfs_engine(g, main["rev"], main["tables"]), pairs,
+        suspending(dict(n=0, calls=0, s=0.0))), path_keys(paths, "ft_suspend"))
+    print(f"  6b suspend: {tally['n']} suspensions in {tally['calls']} calls over "
+          f"{eng.stats.rounds} rounds, payload {row_bytes} bytes per slot, "
+          f"{1e3 * tally['s'] / tally['calls']:.3f} ms per suspend call "
+          f"({1e3 * tally['s'] / tally['n']:.3f} ms per slot), wall {wall:.3f} s; results, "
+          f"statuses and steps identical to phase 3's", flush=True)
+
+
+def terrain_preempt_pairs(side: int, rng):
+    """8 heavy pairs (s on the mesh's left column, t on its right column)
+    and 16 light ones (t within 8 vertices of s along each axis)."""
+    rows = rng.integers(0, side, (8, 2))
+    heavy = np.stack([rows[:, 0] * side, rows[:, 1] * side + side - 1], 1)
+    s = rng.integers(0, side, (16, 2))
+    t = np.clip(s + rng.integers(-8, 9, (16, 2)), 0, side - 1)
+    light = np.stack([s[:, 0] * side + s[:, 1], t[:, 0] * side + t[:, 1]], 1)
+    return heavy.astype(np.int32), light.astype(np.int32)
+
+
+def ft_preempt(terrain, paths) -> None:
+    """6c: lights arrive a round after a convoy of heavies, sjf with and
+    without preemption."""
+    from repro_torch.apps.terrain import make_terrain_engine
+    from repro_torch.launch.supervise import _result_map
+
+    side = TERRAIN_SIDE * 2 - 1
+    heavy, light = terrain_preempt_pairs(side, np.random.default_rng(6))
+
+    def run(preemptive: bool):
+        eng = make_terrain_engine(terrain["g"], terrain["coords"], capacity=FT_C,
+                                  backend="cuda", steps_per_round=TERRAIN_K,
+                                  blocks=terrain["tables"]["default"], scheduler="sjf",
+                                  preemptive=preemptive)
+        for p in heavy:
+            eng.submit(p, budget=4096)
+        order = [qid for qid, _, _ in eng.runtime.run_round() or []]
+        for p in light:
+            eng.submit(p, budget=256)
+        order += drain_submitted(eng)
+        return eng, order
+
+    runs = {}
+    for preemptive, path in ((True, "ft_preempt"), (False, "ft_no_preempt")):
+        (eng, order), wall = sync_time(lambda: counted(path, lambda: run(preemptive),
+                                                       paths)[0])
+        runs[preemptive] = (eng, order, wall)
+        check_launches(path, lambda: run(preemptive), path_keys(paths, path))
+    (pe, po, pw), (ne, no, nw) = runs[True], runs[False]
+    heavy_q, light_q = set(range(8)), set(range(8, 24))
+    last_light = max(po.index(q) for q in light_q)
+    if last_light > min(po.index(q) for q in heavy_q):
+        fail(f"6c: a heavy retired before a light under preemption: {po}")
+    if pe.stats.preemptions < 1 or pe.stats.max_inflight <= FT_C:
+        fail(f"6c: preemptions {pe.stats.preemptions}, max_inflight {pe.stats.max_inflight}")
+    if _result_map(pe) != _result_map(ne):
+        fail("6c: preemptive and non-preemptive results, statuses or steps differ")
+    rank = lambda order, qs: sorted(order.index(q) for q in qs)
+    print(f"  6c preempt: terrain {side} x {side}, sjf, C={FT_C}, k={TERRAIN_K}; "
+          f"preemptive: light ranks {rank(po, light_q)}, heavy ranks {rank(po, heavy_q)}, "
+          f"{pe.stats.preemptions} preemptions, {pe.stats.resumes} resumes, max_inflight "
+          f"{pe.stats.max_inflight}, {pe.stats.rounds} rounds, wall {pw:.3f} s; "
+          f"without: light ranks {rank(no, light_q)}, heavy ranks {rank(no, heavy_q)}, "
+          f"{ne.stats.rounds} rounds, wall {nw:.3f} s; results, statuses and steps "
+          f"identical (heavy steps {[pe.runtime.steps[q] for q in sorted(heavy_q)]})",
+          flush=True)
+
+
+def ft_recover(tmp, store, pairs, main, paths) -> None:
+    """6d: two injected crashes, recovered from the fsynced journal, each
+    boot from 6a's store."""
+    from repro_torch.launch.supervise import _result_map, run_with_recovery
+    from repro_torch.train.fault import FailureInjector
+
+    def supervised(jpath, boots, snaps):
+        def boot():
+            t0 = time.perf_counter()
+            graph = store.get("graph", device="cuda")
+            eng = bibfs_engine(graph, store.get("aux_graphs", device="cuda")["rev"],
+                               store.get("tables", device="cuda"))
+            torch.cuda.synchronize()
+            boots.append(time.perf_counter() - t0)
+            snapshot = eng.runtime.snapshot
+
+            def timed_snapshot():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                n = snapshot()
+                snaps.append(time.perf_counter() - t)
+                return n
+
+            eng.runtime.snapshot = timed_snapshot
+            return eng
+
+        return run_with_recovery(boot, jpath, list(pairs), snapshot_every=SNAPSHOT_EVERY,
+                                 fsync=True, injector=FailureInjector(fail_at_steps={5, 17}))
+
+    jpath, boots, snaps = os.path.join(tmp, "journal.wal"), [], []
+    ((eng, info), wall) = sync_time(lambda: counted(
+        "ft_recover", lambda: supervised(jpath, boots, snaps), paths)[0])
+    if _result_map(eng) != main["bibfs_map"]:
+        fail("6d: the recovered result map differs from phase 3's uninterrupted one")
+    if info["restarts"] != 2 or info["resumed_from_snapshot"] < 1:
+        fail(f"6d: {info}")
+    size = os.path.getsize(jpath)
+    with open(jpath, "rb") as f:
+        records = sum(chunk.count(b"\n") for chunk in iter(lambda: f.read(1 << 24), b""))
+    check_launches("ft_recover", lambda: supervised(os.path.join(tmp, "journal2.wal"), [], []),
+                   path_keys(paths, "ft_recover"))
+    print(f"  6d recover: restarts {info['restarts']}, journal {size} bytes, {records} "
+          f"records, {len(snaps)} snapshots at {statistics.mean(snaps):.4f} s each "
+          f"(max {max(snaps):.4f} s), boots {', '.join(f'{b:.3f}' for b in boots)} s, last "
+          f"recovery replayed {info['replayed_done']}, resumed "
+          f"{info['resumed_from_snapshot']} from a snapshot, resubmitted "
+          f"{info['resubmitted']}; wall {wall:.3f} s; result map identical to phase 3's",
+          flush=True)
+
+
+def ft_poison(terrain, paths) -> None:
+    """6e: qid 3's slot state poisoned with NaN at every round."""
+    from repro_torch.apps.terrain import make_terrain_engine
+    from repro_torch.core.runtime import DONE, POISONED
+    from repro_torch.train.fault import FailureInjector
+
+    eng = make_terrain_engine(terrain["g"], terrain["coords"], capacity=FT_C,
+                              backend="cuda", steps_per_round=TERRAIN_K,
+                              blocks=terrain["tables"]["default"])
+    inj = FailureInjector(poison_qids={3})
+    # not held against the plain version: the poisoned lanes are NaN, and
+    # the kernel's and scatter_reduce's NaN outputs need not agree
+    counted("ft_poison", lambda: drain(eng, terrain["pairs"][:8],
+                                       lambda rt, r: inj.check(r, engine=eng)), paths)
+    st = eng.runtime.status
+    if st[3] != POISONED or any(st[q] != DONE for q in range(8) if q != 3):
+        fail(f"6e: statuses {st}")
+    for q in range(8):
+        if q != 3 and not same_results({q: eng.runtime.results[q]},
+                                       {q: terrain["results"][q]}):
+            fail(f"6e: qid {q} differs from phase 5's answer")
+    print(f"  6e poison: qid 3 POISONED after {eng.stats.poison_retries} retries "
+          f"({len(inj.poison_events)} poisonings), the other 7 DONE and equal to phase "
+          f"5's answers", flush=True)
+
+
+def ft_sigkill(tmp) -> None:
+    """6f: the supervisor CLI SIGKILLs its children on the card."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.supervise", "--crash-test",
+           "--seeds", str(CRASH_SEEDS), "--queries", "6", "--snapshot-every", "2",
+           "--out", os.path.join(tmp, "crash"), "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p, wall = sync_time(lambda: subprocess.run(cmd, capture_output=True, text=True,
+                                               env=env, timeout=600))
+    for line in p.stdout.strip().splitlines():
+        print(f"    {line}", flush=True)
+    if p.returncode != 0 or "recovered ≡ uninterrupted" not in p.stdout:
+        fail(f"6f: crash-test rc={p.returncode}\n{p.stderr[-3000:]}")
+    print(f"  6f SIGKILL: crash-test rc 0 on cuda, {CRASH_SEEDS} seed(s), {wall:.1f} s "
+          "(the children's rc=-9 lines are the kills)", flush=True)
+
+
+def phase_fault_tolerance(g, pairs, main, terrain):
+    """Phase 6: store, suspend, preempt, recover, poison and SIGKILL on the
+    card, reusing phase 3's graph, rev view, pairs, tables, Hub2 index and
+    answers and phase 5's terrain data.  Returns (launches, path rows)."""
+    t0 = time.perf_counter()
+    main = dict(main, rev=main["rev"].to("cuda"), hub_index=main["hub_index"].to("cuda"),
+                tables=tables_to(main["tables"], "cuda"))
+    terrain = dict(terrain, g=terrain["g"].to("cuda"),
+                   tables=tables_to(terrain["tables"], "cuda"))
+    torch.cuda.synchronize()
+    print(f"phase 6: phase 3's Hub2 index, rev view and tables and phase 5's terrain "
+          f"graph and table moved back to the card in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    tmp = tempfile.mkdtemp()
+    paths = []
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"phase 6: temp dir free space {free} bytes", flush=True)
+        if free < MIN_FREE_DISK:
+            fail(f"6a: {free} bytes free in {tmp}, under the {MIN_FREE_DISK:.0f} the "
+                 "store and journals need")
+        store = ft_store(tmp, g, pairs, main, paths)
+        ft_suspend(g, pairs, main, paths)
+        ft_preempt(terrain, paths)
+        ft_recover(tmp, store, pairs, main, paths)
+        ft_poison(terrain, paths)
+        ft_sigkill(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = sum(r["launches"] for r in paths)
+    print(f"phase 6: {launches} kernel launches in the cuda runs; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, paths
 
 
 def main():
@@ -941,16 +1316,17 @@ def main():
             print(f"  {text.strip()}", flush=True)
     max_err = phase_kernel_parity()
     phase_kernel_parity_apps()
-    g, pairs, launches, paths = phase_main_path()
+    g, pairs, launches, main_run = phase_main_path()
     timing = phase_timing(g)
     gc.collect()
     torch.cuda.empty_cache()
-    app_launches, app_paths = phase_apps(g)
+    app_launches, app_paths, terrain = phase_apps(g)
+    ft_launches, ft_paths = phase_fault_tolerance(g, pairs, main_run, terrain)
     row = dict(name="propagate_blocks", route="cuda", layout="packed",
                source="src/repro_torch/csrc/frontier.cu",
                replaces="src/repro/kernels/frontier.py:138",
-               launches=launches + app_launches, max_abs_err=max_err, **timing,
-               paths=paths + app_paths)
+               launches=launches + app_launches + ft_launches, max_abs_err=max_err,
+               **timing, paths=main_run["paths"] + app_paths + ft_paths)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))

@@ -14,8 +14,9 @@ Querying: d_ub = min_{h_s, h_t} d(s,h_s) + d(h_s,h_t) + d(h_t,t) from the
 labels (folded into admission), then a BiBFS over the non-hub induced
 subgraph with the early cutoff at superstep 1 + floor(d_ub / 2).
 
-Incremental maintenance and the durable store wait for later slices
-(ROADMAP.md §1, *Mutable graphs* and *Store, journal and recovery*).
+``load_or_build_hub_index`` boots the index from the durable store
+(``core/store.py``) and builds it only on first use.  Incremental
+maintenance waits for a later slice (ROADMAP.md §1, *Mutable graphs*).
 """
 from __future__ import annotations
 
@@ -118,6 +119,15 @@ def build_hub_index(graph: Graph, k: int, capacity: int = 8,
     same view; the tile plans build one table per semiring.  ``hubs`` pins
     an explicit hub set (default: ``pick_hubs(graph, k)``).
     """
+    index, _ = _build_hub_index_counted(graph, k, capacity, backend, hubs=hubs,
+                                        device=device, **kw)
+    return index
+
+
+def _build_hub_index_counted(graph: Graph, k: int, capacity: int = 8,
+                             backend: str = "coo", hubs=None, device=None, **kw):
+    """(HubIndex, engine rounds spent building) — the round count is what
+    the store's zero-rebuild guarantee is asserted against."""
     dev = resolve_device(device)
     graph = graph.to(dev)
     hubs = pick_hubs(graph, k) if hubs is None else np.array(hubs, np.int32)
@@ -140,7 +150,27 @@ def build_hub_index(graph: Graph, k: int, capacity: int = 8,
         is_hub=is_hub,
         hub_dist=torch.from_numpy(hub_dist).to(dev),
         core=torch.from_numpy(core).to(dev),
-    )
+    ), eng.stats.rounds
+
+
+def load_or_build_hub_index(store, graph: Graph, k: int, capacity: int = 8,
+                            backend: str = "coo", name: str = "index",
+                            device=None, **kw) -> tuple[HubIndex, dict]:
+    """Boot the Hub² index from a durable store (``core/store.py``),
+    building and persisting it only on first use.  Returns ``(index,
+    info)`` with ``info = {built, index_rounds, graph_hash}`` —
+    ``index_rounds`` is 0 on a store hit: restore is a load, not a
+    rebuild.  The entry is bound to ``graph.content_hash()``: an entry
+    written against another graph is rebuilt, never served."""
+    ghash = graph.content_hash()
+    m = store.manifest(name)
+    if m is not None and m.get("meta", {}).get("graph_hash") == ghash:
+        return store.get(name, device=device), {
+            "built": False, "index_rounds": 0, "graph_hash": ghash}
+    index, rounds = _build_hub_index_counted(graph, k, capacity, backend,
+                                             device=device, **kw)
+    store.put(name, index, meta={"graph_hash": ghash, "k": int(k)})
+    return index, {"built": True, "index_rounds": int(rounds), "graph_hash": ghash}
 
 
 class Hub2PPSP(VertexProgram):

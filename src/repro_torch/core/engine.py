@@ -19,7 +19,11 @@ One fused round (``slot_round``):
     copied together.
 
 The slot lifecycle (queue, admission, liveness mirror, retirement, stats,
-drain) lives in ``core/runtime.py::SlotRuntime``.  Propagation is
+drain, preemption, journal and snapshots) lives in
+``core/runtime.py::SlotRuntime``; the engine is its device-side
+``SlotProgram``, and suspends a slot by copying its state row to the host
+(``slot_suspend``) and restores it in the batched admission of a later
+round.  Propagation is
 pluggable: one ``kernels/ops.py::PropagateBackend`` per named view
 ('default', 'rev', ...).
 """
@@ -45,8 +49,6 @@ from repro_torch.kernels import ops
 _NOT_PORTED = {
     "legacy": "Legacy A/B baseline",
     "mesh": "Mesh mode",
-    "preemptive": "Preemption",
-    "journal": "Store, journal and recovery",
     "arg_carried": "Mutable graphs",
     "warmup": "Mutable graphs",
     "index_fn": "Mutable graphs",
@@ -143,14 +145,27 @@ class QuegelEngine(SlotProgram):
     propagate_override : {view: callable (sr, x, frontier) -> y}, each
                  wrapped in ``ops.CallableBackend`` in place of that view's
                  backend.
-    scheduler, result_cache, max_retries : passed to the SlotRuntime.
+    scheduler, result_cache : passed to the SlotRuntime.
+    preemptive : round-boundary preemption (the paper's console
+                 *suspend*): a waiting query that beats the worst-ranked
+                 running one by ``preempt_margin`` suspends it (state
+                 copied to the host by ``slot_suspend``, slot freed, query
+                 re-queued with its superstep accounting intact).  Needs a
+                 key-ordered scheduler (priority/sjf/deadline); results
+                 are identical to the non-preemptive run.
+    preempt_margin : how far a waiting key must beat a running rank.
+    journal, snapshot_every, straggler, max_retries : fault tolerance,
+                 passed to the SlotRuntime — a ``QueryJournal`` of the
+                 query lifecycle, its in-flight snapshot cadence, a
+                 ``StragglerMonitor`` fed per-round wall time, and the
+                 poison-quarantine retry bound.
     device     : where the slot table and graph live; ``cuda`` unless the
                  caller passes another device.  Raises without a GPU.
 
-    The JAX engine's ``legacy``, ``mesh``, ``preemptive``, ``journal``,
-    ``arg_carried``, ``warmup``, ``index_fn`` and ``gather_edges`` options
-    raise ``NotImplementedError`` naming the ROADMAP.md §1 queue item that
-    ports them.
+    The JAX engine's ``legacy``, ``mesh``, ``arg_carried``, ``warmup``,
+    ``index_fn`` and ``gather_edges`` options raise
+    ``NotImplementedError`` naming the ROADMAP.md §1 queue item that ports
+    them.
     """
 
     def __init__(
@@ -171,6 +186,11 @@ class QuegelEngine(SlotProgram):
         propagate_override: Optional[dict] = None,
         scheduler: Any = "fifo",
         result_cache: Optional[int] = None,
+        preemptive: bool = False,
+        preempt_margin: float = 0.0,
+        journal: Any = None,
+        snapshot_every: int = 0,
+        straggler: Any = None,
         max_retries: int = 2,
         device=None,
         **later,
@@ -213,7 +233,10 @@ class QuegelEngine(SlotProgram):
         self.track_frontier = bool(track_frontier)
         self.runtime = SlotRuntime(
             self, self.capacity, scheduler=scheduler, stats=EngineStats(),
-            cache_size=result_cache, max_retries=max_retries,
+            cache_size=result_cache, preemptive=preemptive,
+            preempt_margin=preempt_margin, journal=journal,
+            snapshot_every=snapshot_every, straggler=straggler,
+            max_retries=max_retries,
         )
         self._build(example_query)
 
@@ -278,25 +301,48 @@ class QuegelEngine(SlotProgram):
         return propagate
 
     def _admit(self, admitted: dict) -> None:
-        """Batched admission: ``init`` over the admitted rows only, written
-        into the slot tensors in place."""
-        for q in admitted.values():
-            if isinstance(q, ResumeAdmission):
-                raise NotImplementedError(
-                    "resume admission is not ported yet: ROADMAP.md §1, *Preemption*")
-        rows = sorted(admitted)
+        """Batched admission of fresh and resumed queries in one go: fresh
+        rows run ``init`` (over those rows only), resumed rows take the
+        state a ``slot_suspend`` copied to the host and their superstep
+        count; both are written into the slot tensors in place."""
         S = self._slots
-        queries = self._to_device(
-            tree_map(lambda *xs: np.stack(xs), *[admitted[r] for r in rows]))
-        st = self.program.init(self.graph, queries, self.index)
-        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
-        tree_map(lambda tab, v: tab.index_copy_(0, idx, v.to(tab.dtype)),
-                 S["state"], st)
-        tree_map(lambda tab, v: tab.index_copy_(0, idx, v.to(tab.dtype)),
-                 S["query"], queries)
-        S["step"].index_fill_(0, idx, 0)
+        fresh = sorted(s for s, q in admitted.items()
+                       if not isinstance(q, ResumeAdmission))
+        resumed = sorted(s for s, q in admitted.items()
+                         if isinstance(q, ResumeAdmission))
+        put = lambda idx, tree, new: tree_map(
+            lambda tab, v: tab.index_copy_(0, idx, v.to(tab.dtype)), tree, new)
+        stack = lambda rows: tree_map(lambda *xs: np.stack(xs), *rows)
+        if fresh:
+            idx = torch.as_tensor(fresh, dtype=torch.long, device=self.device)
+            queries = self._to_device(stack([admitted[r] for r in fresh]))
+            put(idx, S["state"], self.program.init(self.graph, queries, self.index))
+            put(idx, S["query"], queries)
+            S["step"].index_fill_(0, idx, 0)
+        if resumed:
+            idx = torch.as_tensor(resumed, dtype=torch.long, device=self.device)
+            adm = [admitted[r] for r in resumed]
+            put(idx, S["state"], self._to_device(
+                stack([self._resume_state(a.payload) for a in adm])))
+            put(idx, S["query"], self._to_device(stack([a.query for a in adm])))
+            S["step"].index_copy_(0, idx, torch.as_tensor(
+                [a.steps for a in adm], dtype=torch.int32, device=self.device))
+        idx = torch.as_tensor(fresh + resumed, dtype=torch.long, device=self.device)
         S["live"].index_fill_(0, idx, True)
         S["done"].index_fill_(0, idx, False)
+
+    @staticmethod
+    def _resume_state(payload):
+        """The state rows of a ``slot_suspend`` payload.  Only the JAX
+        package's version-0 payload exists here: the port has no graph
+        versions yet."""
+        if not (isinstance(payload, dict) and "state" in payload
+                and int(payload.get("v", -1)) == 0):
+            v = payload.get("v") if isinstance(payload, dict) else None
+            raise NotImplementedError(
+                f"resume payload pins graph version {v!r}: the port resumes "
+                "only version 0 until ROADMAP.md §1, *Mutable graphs*")
+        return payload["state"]
 
     def _superstep(self) -> None:
         """ONE superstep for every live slot.  ``done`` accumulates over the
@@ -339,6 +385,44 @@ class QuegelEngine(SlotProgram):
         idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
         self._slots["live"].index_fill_(0, idx, False)
 
+    def slot_suspend(self, slots: list[int]) -> list[Any]:
+        """Preemption and snapshots: gather the victims' state rows on the
+        device, copy them to the host in one transfer (the rows of every
+        leaf as bytes, side by side), and clear their liveness.  Each
+        payload is ``{"v": 0, "state": {leaf: numpy row}}`` with the leaf
+        names of ``program.init`` — the JAX engine's payload at graph
+        version 0 — and owns its rows (a fresh host copy: the slot tensors
+        are updated in place)."""
+        rows = [int(s) for s in slots]
+        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        got = []
+        tree_map(lambda tab: got.append(tab.index_select(0, idx)), self._slots["state"])
+        # one device->host copy: every leaf's rows as bytes, side by side
+        host = to_numpy(torch.cat(
+            [g.reshape(len(rows), -1).view(torch.uint8) for g in got], 1))
+        spans, end = [], 0
+        for g in got:
+            start, end = end, end + g[0].numel() * g.element_size()
+            spans.append((start, end, torch.empty(0, dtype=g.dtype).numpy().dtype,
+                          tuple(g.shape[1:])))
+        self.slot_evict(rows)
+
+        def row(i):
+            it = iter(spans)
+
+            def leaf(_):
+                a, b, dtype, shape = next(it)
+                return host[i, a:b].view(dtype).reshape(shape).copy()
+
+            return tree_map(leaf, self._slots["state"])
+
+        return [{"v": 0, "state": row(i)} for i in range(len(rows))]
+
+    def slot_register_resume(self, payload) -> None:
+        """A journal-replayed payload re-entered the queue: refuse one the
+        port cannot resume now, not at its admission round."""
+        self._resume_state(payload)
+
     def slot_observe(self) -> None:
         """With ``track_frontier``: the live slots' active-vertex count,
         summed over every leaf of ``program.frontier_of``."""
@@ -364,6 +448,23 @@ class QuegelEngine(SlotProgram):
             if t is not None:
                 out[name] = t
         return out
+
+    def poison_slot(self, slot: int, value: float = float("nan")) -> int:
+        """Fault injection: overwrite one slot's row of every float state
+        leaf with ``value`` in place, modeling in-flight memory corruption.
+        Returns the number of leaves poisoned; raises if the state has no
+        float leaves (int lanes saturate at the finite ``semiring.INF``
+        sentinel and cannot encode a poison).  The runtime detects the
+        non-finite result at extraction and quarantines the query."""
+        floats = [t for t in tree_leaves(self._slots["state"])
+                  if t.dtype.is_floating_point]
+        if not floats:
+            raise ValueError(
+                "cannot poison slot state: no float leaves (int-state "
+                "programs saturate at the finite INF sentinel)")
+        for t in floats:
+            t[int(slot)].fill_(value)
+        return len(floats)
 
     def table_bytes(self) -> int:
         """Device bytes held by every view's tile tables (dense for

@@ -16,19 +16,36 @@ liveness mirror, and everything it learns about a round comes from the
 ``RoundOutcome`` the program distilled from its single device->host sync.
 On top it adds admission schedulers (fifo/priority/sjf/deadline),
 per-query superstep budgets with TIMEOUT eviction, an opt-in result cache,
-non-finite quarantine, and the open-loop ``pump``/``poll`` face.
+and the open-loop ``pump``/``poll`` face, and:
 
-Preemption, the query journal and snapshots are not ported yet
-(ROADMAP.md §1, *Preemption* and *Store, journal and recovery*); their
-arguments raise ``NotImplementedError``.
+* **Preemptive scheduling** (``preemptive=True``, the paper's console
+  *suspend*): at a round boundary, a waiting query that beats the
+  worst-ranked running query by ``preempt_margin`` triggers
+  ``slot_suspend`` — the victim's resumable state is copied to the host,
+  its slot freed, and it re-enters the queue as a *resume ticket* that
+  batched admission later restores with its step and budget accounting
+  intact.  Suspension is observationally equivalent to never having been
+  admitted, modulo steps already charged; it also lets more queries be in
+  flight than there are slots (``SlotStats.max_inflight``).
+* **Crash tolerance**: an append-only ``QueryJournal`` logs every submit
+  and retirement (sha256-prefixed JSON lines, fsynced, byte-compatible
+  with the JAX package's), and ``snapshot()`` / ``snapshot_every=N``
+  journal the live slots' resumable state through the same
+  ``slot_suspend`` path, so ``launch/supervise.py`` can replay the
+  journal after a crash and resume with identical results.  A result with
+  non-finite floats is quarantined: fresh re-admission with exponential
+  backoff up to ``max_retries``, then the terminal status ``POISONED``.
 """
 from __future__ import annotations
 
+import base64
 import collections
 import dataclasses
 import hashlib
 import heapq
+import json
 import math
+import os
 import time
 from typing import Any, Optional
 
@@ -98,10 +115,21 @@ class SlotStats:
     rejected: int = 0
     cache_hits: int = 0
     supersteps_total: int = 0
+    # preemption: suspensions, resume re-admissions, and the high-water
+    # mark of in-flight queries (live slots + suspended), which exceeds
+    # the capacity once a query is suspended while every slot stays busy
+    preemptions: int = 0
+    resumes: int = 0
     max_inflight: int = 0
+    # fault tolerance: journal snapshots taken, retired queries replayed
+    # from the journal, poison re-admissions and POISONED retirements,
+    # rounds abandoned to an exception, rounds flagged as stragglers
+    snapshots: int = 0
+    replayed: int = 0
     poison_retries: int = 0
     poisoned: int = 0
     round_failures: int = 0
+    straggler_rounds: int = 0
     round_times: list = dataclasses.field(default_factory=list)
     # per-query submit->result latency, split at the first admission into
     # queue wait and service (appended in lockstep, DONE only)
@@ -143,17 +171,31 @@ class Ticket:
     budget: int = 0           # declared superstep budget; 0 = unlimited.
     # Doubles as the sjf job-size estimate and the TIMEOUT eviction bound.
     submit_t: float = 0.0
-    admit_t: float = 0.0      # wall time of the first slot admission
+    # wall time of the FIRST slot admission (0.0 = never admitted); kept
+    # across suspend/resume so queue_wait is measured once
+    admit_t: float = 0.0
     seq: int = 0              # submission order; ties break FIFO
-    steps_done: int = 0       # supersteps already charged
+    # supersteps already charged (nonzero only for a resume ticket): sjf
+    # ranks by remaining work, and the TIMEOUT bound keeps counting
+    steps_done: int = 0
+    # resumable state from ``slot_suspend`` (None = fresh query)
+    resume: Any = None
     attempts: int = 0         # poison-quarantine re-admissions consumed
 
 
 class Scheduler:
     """Admission-order policy over queued tickets: only the pop order
-    differs between implementations."""
+    differs between implementations.
+
+    Key-ordered schedulers also expose a *preemption rank*
+    (``running_key``): the key a RUNNING query would queue with after the
+    supersteps it has consumed.  ``SlotRuntime(preemptive=True)`` compares
+    the best waiting keys against the worst running ranks at every round
+    boundary and suspends the losers."""
 
     name = "base"
+    # FIFO has no rank to compare a waiting query against a running one
+    supports_preemption = False
 
     def push(self, ticket: Ticket) -> None:
         raise NotImplementedError
@@ -162,6 +204,15 @@ class Scheduler:
         raise NotImplementedError
 
     def __len__(self) -> int:
+        raise NotImplementedError
+
+    def waiting_keys(self, n: int) -> list:
+        """The ``n`` best queued keys in pop order (preemptive only)."""
+        raise NotImplementedError
+
+    def running_key(self, ticket: Ticket, steps: int):
+        """Rank of a RUNNING query after ``steps`` consumed supersteps,
+        comparable against ``waiting_keys`` (preemptive only)."""
         raise NotImplementedError
 
 
@@ -186,6 +237,8 @@ class FIFOScheduler(Scheduler):
 class _HeapScheduler(Scheduler):
     """Key-ordered admission (O(log n)); FIFO among equal keys."""
 
+    supports_preemption = True
+
     def __init__(self):
         self._h: list[tuple] = []
 
@@ -201,6 +254,12 @@ class _HeapScheduler(Scheduler):
     def __len__(self) -> int:
         return len(self._h)
 
+    def waiting_keys(self, n: int) -> list:
+        return [k for k, _, _ in heapq.nsmallest(n, self._h)]
+
+    def running_key(self, t: Ticket, steps: int):
+        return self.key(dataclasses.replace(t, steps_done=steps))
+
 
 class PriorityScheduler(_HeapScheduler):
     """User-supplied levels; lower ``priority`` is admitted first."""
@@ -212,7 +271,8 @@ class PriorityScheduler(_HeapScheduler):
 
 
 class SJFScheduler(_HeapScheduler):
-    """Shortest-job-first by declared remaining superstep budget;
+    """Shortest-job-first by declared remaining superstep budget
+    (``budget - steps_done``: SRPT for resume tickets and running ranks);
     undeclared (budget=0) queries sort last."""
 
     name = "sjf"
@@ -294,10 +354,185 @@ class ResultCache:
         return len(self._d)
 
 
-# Runtime options of the JAX package that later slices port, with the title
-# of the ROADMAP.md §1 queue item that carries each.
-_NOT_PORTED = {"preemptive": "Preemption", "journal": "Store, journal and recovery",
-               "snapshot_every": "Store, journal and recovery"}
+
+
+# ------------------------------------------------------------- query journal
+def _journal_enc(obj):
+    """Pytree -> JSON-able, tagged so decoding is exact: arrays carry
+    dtype/shape/base64 bytes, tuples stay tuples, and plain dataclasses
+    record their class by name.  The tags, dtype names and bytes are the
+    JAX package's, so either package reads the other's journal.  Arrays
+    arrive as numpy: a torch tensor here is a caller's fault."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, torch.Tensor):
+        raise TypeError("journal records hold numpy arrays, not torch tensors: "
+                        "copy to the host with runtime.to_numpy first")
+    if isinstance(obj, dict):
+        if not all(isinstance(k, str) for k in obj):
+            raise ValueError("journal records need string dict keys")
+        return {"t": "d", "v": {k: _journal_enc(v) for k, v in obj.items()}}
+    if isinstance(obj, (list, tuple)):
+        return {"t": "l" if isinstance(obj, list) else "t",
+                "v": [_journal_enc(v) for v in obj]}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = type(obj)
+        return {"t": "dc", "cls": f"{cls.__module__}:{cls.__qualname__}",
+                "v": {f.name: _journal_enc(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj)}}
+    arr = np.asarray(obj)
+    if arr.dtype.kind not in "fiub":
+        arr = arr.astype(np.float32)
+    return {"t": "a", "dtype": str(arr.dtype), "shape": list(arr.shape),
+            "b64": base64.b64encode(arr.tobytes()).decode("ascii")}
+
+
+def _journal_dec(obj):
+    if not isinstance(obj, dict):
+        return obj
+    t = obj["t"]
+    if t == "d":
+        return {k: _journal_dec(v) for k, v in obj["v"].items()}
+    if t == "l":
+        return [_journal_dec(v) for v in obj["v"]]
+    if t == "t":
+        return tuple(_journal_dec(v) for v in obj["v"])
+    if t == "a":
+        buf = base64.b64decode(obj["b64"])
+        return np.frombuffer(buf, dtype=np.dtype(obj["dtype"])).reshape(
+            obj["shape"]).copy()
+    if t == "dc":
+        from repro_torch.core.store import _resolve_class
+
+        cls = _resolve_class(obj["cls"])
+        return cls(**{k: _journal_dec(v) for k, v in obj["v"].items()})
+    raise ValueError(f"unknown journal node type {t!r}")
+
+
+def _digest(enc) -> str:
+    return hashlib.sha256(
+        json.dumps(enc, sort_keys=True, separators=(",", ":")).encode()
+    ).hexdigest()
+
+
+def result_hash(result) -> str:
+    """Stable digest of a result pytree (journaled at retirement so a
+    recovered run can be audited against the uninterrupted one)."""
+    return _digest(_journal_enc(result))
+
+
+class QueryJournal:
+    """Append-only write-ahead log of the query lifecycle.
+
+    One JSON record per line, prefixed with its own sha256 — replay stops
+    at the first torn or corrupt line, so a crash mid-append loses at most
+    the record being written.  Record types:
+
+      submit   {qid, seq, priority, deadline, budget, query}
+      retire   {qid, status, steps, result, result_hash}
+      snapshot {qid, seq, priority, deadline, budget, steps, payload}
+               (in-flight state via ``slot_suspend``; the newest snapshot
+               per qid wins on replay)
+      mutation {version, parent_hash, content_hash, adds, add_w, dels}
+               (a graph delta; written by the JAX package's mutable
+               engines, encoded here so the format is whole — the port's
+               engine replays none until ROADMAP.md §1, *Mutable graphs*)
+
+    ``fsync=True`` (default) makes every append durable before the runtime
+    proceeds — the crash-safety contract.
+    """
+
+    def __init__(self, path: str, *, fsync: bool = True):
+        self.path = str(path)
+        self.fsync = bool(fsync)
+        d = os.path.dirname(self.path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self._f = open(self.path, "ab")
+        self.records_written = 0
+
+    def append(self, rec: dict) -> None:
+        body = json.dumps(rec, separators=(",", ":"))
+        digest = hashlib.sha256(body.encode()).hexdigest()
+        self._f.write(f"{digest} {body}\n".encode())
+        self._f.flush()
+        if self.fsync:
+            os.fsync(self._f.fileno())
+        self.records_written += 1
+
+    def submit(self, qid: int, query, *, priority: int, deadline: float,
+               budget: int, seq: int) -> None:
+        self.append({
+            "type": "submit", "qid": int(qid), "seq": int(seq),
+            "priority": int(priority),
+            "deadline": None if math.isinf(deadline) else float(deadline),
+            "budget": int(budget), "query": _journal_enc(query),
+        })
+
+    def retire(self, qid: int, status: str, steps: int, result) -> None:
+        enc = _journal_enc(result)
+        self.append({
+            "type": "retire", "qid": int(qid), "status": str(status),
+            "steps": int(steps), "result": enc, "result_hash": _digest(enc),
+        })
+
+    def snapshot(self, ticket: Ticket) -> None:
+        self.append({
+            "type": "snapshot", "qid": int(ticket.qid), "seq": int(ticket.seq),
+            "priority": int(ticket.priority),
+            "deadline": (None if math.isinf(ticket.deadline)
+                         else float(ticket.deadline)),
+            "budget": int(ticket.budget), "steps": int(ticket.steps_done),
+            "payload": _journal_enc(ticket.resume),
+        })
+
+    def mutation(self, *, version: int, parent_hash: str, content_hash: str,
+                 adds, add_w, dels) -> None:
+        """Log one graph delta: ``adds``/``dels`` are (k, 2) (src, dst)
+        pair arrays; the parent/content hashes chain the versions."""
+        self.append({
+            "type": "mutation", "version": int(version),
+            "parent_hash": str(parent_hash),
+            "content_hash": str(content_hash),
+            "adds": _journal_enc(np.asarray(adds, np.int32).reshape(-1, 2)),
+            "add_w": _journal_enc(np.asarray(add_w)),
+            "dels": _journal_enc(np.asarray(dels, np.int32).reshape(-1, 2)),
+        })
+
+    def close(self) -> None:
+        self._f.close()
+
+    @property
+    def bytes_written(self) -> int:
+        self._f.flush()
+        return os.path.getsize(self.path)
+
+    @staticmethod
+    def replay(path: str) -> list[dict]:
+        """Decoded records in append order, stopping at the first line that
+        is torn or fails its checksum (everything before it is intact by
+        construction).  A missing file replays as empty."""
+        if not os.path.exists(path):
+            return []
+        out = []
+        with open(path, "rb") as f:
+            for raw in f:
+                line = raw.decode("utf-8", errors="replace")
+                digest, _, body = line.rstrip("\n").partition(" ")
+                if not body or not raw.endswith(b"\n"):
+                    break
+                if hashlib.sha256(body.encode()).hexdigest() != digest:
+                    break
+                rec = json.loads(body)
+                for key in ("query", "result", "payload", "adds", "add_w", "dels"):
+                    if key in rec:
+                        rec[key] = _journal_dec(rec[key])
+                if rec.get("deadline") is None and rec["type"] in (
+                    "submit", "snapshot"
+                ):
+                    rec["deadline"] = math.inf
+                out.append(rec)
+        return out
 
 
 # ------------------------------------------------------------------ protocol
@@ -312,12 +547,14 @@ class RoundOutcome:
 
 @dataclasses.dataclass
 class ResumeAdmission:
-    """A suspended query re-entering through batched admission (the
-    preemption path, not ported yet: ROADMAP.md §1, *Preemption*)."""
+    """A suspended query re-entering through batched admission: instead of
+    a fresh query to ``init``, ``slot_round``'s admitted dict carries the
+    original query plus the ``slot_suspend`` payload and the superstep
+    counter to restore."""
 
     query: Any
-    payload: Any
-    steps: int
+    payload: Any  # whatever slot_suspend returned for this query
+    steps: int    # cumulative supersteps already charged
 
 
 class SlotProgram:
@@ -336,6 +573,23 @@ class SlotProgram:
     def slot_evict(self, slots: list[int]) -> None:
         """Clear device-side liveness for budget-evicted slots.  State must
         survive until ``slot_collect`` (partial results)."""
+        return None
+
+    def slot_suspend(self, slots: list[int]) -> list[Any]:
+        """Copy each live slot's full resumable state to the host and leave
+        the slot inert (as after ``slot_evict``).  Returns one payload per
+        slot; the runtime hands it back through admission as a
+        ``ResumeAdmission``.  Resuming from the payload must be
+        observationally equivalent to never having been suspended."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement slot_suspend: "
+            "preemptive scheduling needs a program that can extract and "
+            "restore per-slot state"
+        )
+
+    def slot_register_resume(self, payload) -> None:
+        """A journal-replayed suspend payload re-entered the queue
+        (``SlotRuntime.restore_pending``): check that it can be resumed."""
         return None
 
     def slot_observe(self) -> None:
@@ -361,23 +615,36 @@ class SlotRuntime:
         scheduler: Any = "fifo",
         stats: Optional[SlotStats] = None,
         cache_size: Optional[int] = None,
-        max_retries: int = 2,
         preemptive: bool = False,
-        journal: Any = None,
+        preempt_margin: float = 0.0,
+        journal: Optional[QueryJournal] = None,
         snapshot_every: int = 0,
+        straggler: Any = None,
+        max_retries: int = 2,
     ):
-        """``max_retries`` bounds fresh re-admissions of a query whose
-        extracted result carries non-finite floats before it retires as
-        ``POISONED``."""
-        for name, val in (("preemptive", preemptive), ("journal", journal),
-                          ("snapshot_every", snapshot_every)):
-            if val:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet: ROADMAP.md §1, *{_NOT_PORTED[name]}*")
+        """``journal`` logs every submit/retire (and snapshot);
+        ``snapshot_every=N`` journals all live slots' resumable state every
+        N executed rounds (0 = only on explicit ``snapshot()``);
+        ``straggler`` is a ``train/fault.py::StragglerMonitor`` fed
+        per-round wall time; ``max_retries`` bounds fresh re-admissions of
+        a query whose extracted result carries non-finite floats before it
+        retires as ``POISONED``."""
         self.program = program
         self.capacity = int(capacity)
         self.scheduler = make_scheduler(scheduler)
+        self.preemptive = bool(preemptive)
+        self.preempt_margin = float(preempt_margin)
+        self.journal = journal
+        self.snapshot_every = int(snapshot_every)
+        self.straggler = straggler
         self.max_retries = int(max_retries)
+        if self.preemptive and not self.scheduler.supports_preemption:
+            raise ValueError(
+                f"scheduler '{self.scheduler.name}' cannot drive preemption: "
+                "it has no rank to compare waiting against running queries "
+                "(use priority/sjf/deadline, or a Scheduler with "
+                "supports_preemption)"
+            )
         self.stats = stats if stats is not None else SlotStats()
         self.results: dict[int, Any] = {}
         self.status: dict[int, str] = {}
@@ -388,6 +655,10 @@ class SlotRuntime:
         self.cache = ResultCache(cache_size) if cache_size else None
         self._slot_ticket: dict[int, Ticket] = {}
         self._qid_key: dict[int, str] = {}
+        # per-slot cumulative supersteps from the LAST RoundOutcome — what a
+        # suspension at this round boundary charges the victim with
+        self._last_steps = np.zeros(self.capacity, dtype=np.int64)
+        self._n_suspended = 0
         self._next_qid = 0
         self._seq = 0
         # poison-quarantine backoff: (release_tick, ticket) pairs
@@ -421,8 +692,18 @@ class SlotRuntime:
                 self.stats.queue_waits.append(0.0)
                 self.stats.service_times.append(elapsed)
                 self._pump_buf.append((qid, hit, DONE))
+                if self.journal is not None:
+                    # the full lifecycle even for a cache hit, so replay
+                    # needs no cache state
+                    self.journal.submit(qid, query, priority=priority,
+                                        deadline=deadline, budget=budget,
+                                        seq=self._seq)
+                    self.journal.retire(qid, DONE, 0, hit)
                 return qid
             self._qid_key[qid] = key
+        if self.journal is not None:
+            self.journal.submit(qid, query, priority=priority,
+                                deadline=deadline, budget=budget, seq=self._seq)
         self.scheduler.push(
             Ticket(qid, query, int(priority), float(deadline), int(budget),
                    submit_t=t, seq=self._seq)
@@ -433,32 +714,124 @@ class SlotRuntime:
     def pending(self) -> int:
         return len(self.scheduler) + len(self._retry_q)
 
+    def slot_of(self, qid: int) -> Optional[int]:
+        """The live slot running ``qid`` (None if not live)."""
+        for s, tk in self._slot_ticket.items():
+            if tk.qid == qid and self.live[s]:
+                return s
+        return None
+
     def inflight(self) -> int:
-        return int(self.live.sum())
+        """Queries holding state: live slots + suspended.  Can exceed
+        ``capacity`` under preemption."""
+        return int(self.live.sum()) + self._n_suspended
+
+    def suspend(self, slots: list[int]) -> None:
+        """Suspend live slots at this round boundary: copy their resumable
+        state to the host (``slot_suspend``), free the slots, and re-queue
+        the queries as resume tickets carrying their cumulative superstep
+        count (the paper's console suspend; preemption uses it too)."""
+        slots = [int(s) for s in slots]
+        for s in slots:
+            if not (0 <= s < self.capacity) or not self.live[s]:
+                raise ValueError(f"cannot suspend slot {s}: not live")
+        self.stats.preemptions += len(self._suspend_into_queue(slots))
+
+    def _suspend_into_queue(self, slots: list[int]) -> list[Ticket]:
+        """Shared core of ``suspend`` and ``snapshot``; returns the pushed
+        tickets (payload attached) so callers can journal them."""
+        payloads = self.program.slot_suspend(slots)
+        pushed = []
+        for s, payload in zip(slots, payloads):
+            tk = self._slot_ticket.pop(s)
+            self.live[s] = False
+            tk = dataclasses.replace(
+                tk, resume=payload, steps_done=int(self._last_steps[s]))
+            self.scheduler.push(tk)
+            self._n_suspended += 1
+            pushed.append(tk)
+        return pushed
+
+    def snapshot(self) -> int:
+        """Journal a resumable snapshot of every live slot and re-queue
+        them as resume tickets.  It reuses the suspend path, so by the
+        suspend/resume parity invariant a snapshot never changes any
+        query's result, status or step count; on recovery the journaled
+        payload re-enters admission directly.  Returns the number of slots
+        snapshotted."""
+        live = [s for s in range(self.capacity) if self.live[s]]
+        if not live:
+            return 0
+        for tk in self._suspend_into_queue(live):
+            if self.journal is not None:
+                self.journal.snapshot(tk)
+        self.stats.snapshots += 1
+        return len(live)
 
     def _admit_from_queue(self, free: list[int], admitted: dict) -> None:
+        """Pop tickets into free slots.  Resume tickets skip validation
+        (they were validated at first admission) and re-enter as
+        ``ResumeAdmission`` so the program restores state instead of
+        running ``init``."""
         while free and len(self.scheduler):
             tk = self.scheduler.pop()
-            rej = self.program.slot_validate(tk.query)
-            if rej is not None:
-                status, res = rej
-                self.results[tk.qid] = res
-                self.status[tk.qid] = status
-                self.steps[tk.qid] = 0
-                self.stats.rejected += 1
-                self._qid_key.pop(tk.qid, None)
-                self._pump_buf.append((tk.qid, res, status))
-                continue
+            if tk.resume is None:
+                rej = self.program.slot_validate(tk.query)
+                if rej is not None:
+                    status, res = rej
+                    self.results[tk.qid] = res
+                    self.status[tk.qid] = status
+                    self.steps[tk.qid] = 0
+                    self.stats.rejected += 1
+                    self._qid_key.pop(tk.qid, None)
+                    if self.journal is not None:
+                        self.journal.retire(tk.qid, status, 0, res)
+                    self._pump_buf.append((tk.qid, res, status))
+                    continue
             slot = free.pop()
             if tk.admit_t == 0.0:
                 tk = dataclasses.replace(tk, admit_t=time.perf_counter())
-            admitted[slot] = tk.query
+            if tk.resume is None:
+                admitted[slot] = tk.query
+            else:
+                admitted[slot] = ResumeAdmission(tk.query, tk.resume, tk.steps_done)
+                self._n_suspended -= 1
+                self.stats.resumes += 1
+                tk = dataclasses.replace(tk, resume=None)  # payload handed off
             self._slot_ticket[slot] = tk
+            self._last_steps[slot] = tk.steps_done
             self.live[slot] = True
+
+    def _preempt(self, admitted: dict) -> None:
+        """Round-boundary preemption: pair the best waiting keys against
+        the worst-ranked running queries; every pairing the waiting side
+        wins by more than ``preempt_margin`` suspends the running query
+        and hands its slot to the queue.  Freshly admitted slots are never
+        victims."""
+        sched = self.scheduler
+        running = [s for s in range(self.capacity)
+                   if self.live[s] and s not in admitted]
+        if not running or not len(sched):
+            return
+        rank = {s: sched.running_key(self._slot_ticket[s], int(self._last_steps[s]))
+                for s in running}
+        # worst first; among equals prefer the later-submitted victim
+        running.sort(key=lambda s: (rank[s], self._slot_ticket[s].seq), reverse=True)
+        victims = []
+        for wkey, s in zip(sched.waiting_keys(len(running)), running):
+            if wkey < rank[s] - self.preempt_margin:
+                victims.append(s)
+            else:
+                break
+        if victims:
+            self.suspend(victims)
+            self._admit_from_queue(victims, admitted)
 
     @staticmethod
     def _has_nonfinite(result) -> bool:
-        """True when any float leaf of ``result`` holds NaN/Inf."""
+        """True when any float leaf of ``result`` holds NaN/Inf (the int
+        lanes saturate at the finite ``semiring.INF`` sentinel, so
+        non-finite floats are unambiguous corruption)."""
         for leaf in tree_leaves(result):
             arr = to_numpy(leaf)
             if arr.dtype.kind == "f" and not np.isfinite(arr).all():
@@ -468,7 +841,8 @@ class SlotRuntime:
     def _abandon_live_slots(self) -> None:
         """An exception escaped the program mid-round: mark all live slots
         dead, best-effort clear device liveness, and re-queue their tickets
-        as fresh admissions."""
+        as FRESH admissions (a deterministic program recomputes the same
+        result, and the step meter restarts at 0)."""
         live = [s for s in range(self.capacity) if self.live[s]]
         if not live:
             return
@@ -479,7 +853,7 @@ class SlotRuntime:
         for s in live:
             tk = self._slot_ticket.pop(s)
             self.live[s] = False
-            self.scheduler.push(dataclasses.replace(tk, steps_done=0))
+            self.scheduler.push(dataclasses.replace(tk, resume=None, steps_done=0))
         self.stats.round_failures += 1
 
     def _release_retries(self) -> None:
@@ -492,15 +866,17 @@ class SlotRuntime:
             self.scheduler.push(tk)
 
     def run_round(self) -> Optional[list[tuple[int, Any, str]]]:
-        """Admit + one program round + retire.  Returns the retired
-        [(qid, result, status)] — empty if the round completed nothing —
-        or None when there was nothing to run."""
+        """Admit (+ preempt) + one program round + retire.  Returns the
+        retired [(qid, result, status)] — empty if the round completed
+        nothing — or None when there was nothing to run."""
         t0 = time.perf_counter()
         self._ticks += 1
         self._release_retries()
         admitted: dict[int, Any] = {}
         free = [i for i in range(self.capacity) if not self.live[i]]
         self._admit_from_queue(free, admitted)
+        if self.preemptive:
+            self._preempt(admitted)
         if not self.live.any():
             return None
         self.stats.max_inflight = max(self.stats.max_inflight, self.inflight())
@@ -510,6 +886,8 @@ class SlotRuntime:
             t_done = time.perf_counter()
             done = np.asarray(out.done)
             steps = np.asarray(out.steps)
+            # live slots only: a free slot's device counter is stale
+            self._last_steps[self.live] = steps[self.live]
             finished = [int(s) for s in np.nonzero(done & self.live)[0]]
             evicted = [
                 s
@@ -537,7 +915,7 @@ class SlotRuntime:
                 # backoff, and only after max_retries give up as POISONED.
                 if tk.attempts < self.max_retries:
                     retry = dataclasses.replace(
-                        tk, steps_done=0, attempts=tk.attempts + 1)
+                        tk, resume=None, steps_done=0, attempts=tk.attempts + 1)
                     self._retry_q.append((self._ticks + 2 ** tk.attempts, retry))
                     self.stats.poison_retries += 1
                     continue
@@ -546,6 +924,8 @@ class SlotRuntime:
                 self.steps[tk.qid] = int(steps[slot])
                 self.stats.poisoned += 1
                 self._qid_key.pop(tk.qid, None)
+                if self.journal is not None:
+                    self.journal.retire(tk.qid, POISONED, int(steps[slot]), res)
                 completed.append((tk.qid, res, POISONED))
                 continue
             status = DONE if slot in finished else TIMEOUT
@@ -567,11 +947,19 @@ class SlotRuntime:
             else:
                 self.stats.timeouts += 1
                 self._qid_key.pop(tk.qid, None)
+            if self.journal is not None:
+                self.journal.retire(tk.qid, status, int(steps[slot]), res)
             completed.append((tk.qid, res, status))
         self.stats.rounds += 1
         self.stats.slot_occupancy.append(occupancy)
         self.program.slot_observe()
-        self.stats.round_times.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.stats.round_times.append(dt)
+        if self.straggler is not None and self.straggler.record(self.stats.rounds, dt):
+            self.stats.straggler_rounds += 1
+        if (self.snapshot_every > 0 and self.journal is not None
+                and self.stats.rounds % self.snapshot_every == 0):
+            self.snapshot()
         return completed
 
     # ------------------------------------------------------------ open loop
@@ -597,6 +985,47 @@ class SlotRuntime:
         if st is None:
             return None
         return st, self.results.get(qid)
+
+    # ------------------------------------------------------------ recovery
+    def restore_retired(self, qid: int, status: str, result, steps: int) -> None:
+        """Install a journal-replayed terminal query without re-running it
+        (launch/supervise.py).  Counters advance as the original run did."""
+        self.results[qid] = result
+        self.status[qid] = status
+        self.steps[qid] = int(steps)
+        self.stats.replayed += 1
+        if status == DONE:
+            self.stats.queries_done += 1
+            self.stats.supersteps_total += int(steps)
+        elif status == TIMEOUT:
+            self.stats.timeouts += 1
+            self.stats.supersteps_total += int(steps)
+        elif status == REJECTED:
+            self.stats.rejected += 1
+        elif status == POISONED:
+            self.stats.poisoned += 1
+        self._next_qid = max(self._next_qid, qid + 1)
+
+    def restore_pending(self, qid: int, query, *, priority: int = 0,
+                        deadline: float = math.inf, budget: int = 0,
+                        seq: Optional[int] = None, payload: Any = None,
+                        steps_done: int = 0) -> None:
+        """Re-enter a journal-replayed in-flight query: with a snapshot
+        ``payload`` it resumes through batched admission like a suspended
+        query (steps charged so far intact); without one it re-runs from
+        scratch under its original scheduling attributes and qid.  Does
+        NOT journal: the original submit record is already in the log."""
+        seq = self._seq if seq is None else int(seq)
+        tk = Ticket(int(qid), query, int(priority), float(deadline),
+                    int(budget), submit_t=time.perf_counter(), seq=seq,
+                    steps_done=int(steps_done), resume=payload)
+        self.scheduler.push(tk)
+        if payload is not None:
+            # _admit_from_queue decrements the count when it re-enters
+            self._n_suspended += 1
+            self.program.slot_register_resume(payload)
+        self._next_qid = max(self._next_qid, qid + 1)
+        self._seq = max(self._seq, seq + 1)
 
     def run_until_drained(self, max_rounds: int = 100_000) -> dict[int, Any]:
         """Batch-querying mode (paper scenario ii)."""

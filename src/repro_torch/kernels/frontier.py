@@ -140,8 +140,8 @@ def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
                slots are skipped.  None visits every slot.
 
     CPU tensors take :func:`propagate_blocks_plain`; CUDA tensors launch
-    the kernel.  ``propagate_blocks.launches`` counts the launches and
-    ``propagate_blocks.shapes`` counts them per (semiring, dtype, Q).  A
+    the kernel.  ``propagate_blocks.shapes`` counts the launches per
+    (semiring, dtype, Q), and :func:`launches` is their total.  A
     dense ``BlockSparse`` is refused: pack it once with
     ``core.graph.pack_blocks``.
     """
@@ -218,10 +218,13 @@ def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
         )
     if rc != 0:
         raise RuntimeError(f"propagate_blocks: CUDA launch failed with error {rc}")
-    propagate_blocks.launches += 1
     propagate_blocks.shapes[(sr.name, str(x.dtype).removeprefix("torch."), q)] += 1
     return out[:, :v]
 
 
-propagate_blocks.launches = 0
 propagate_blocks.shapes = collections.Counter()
+
+
+def launches() -> int:
+    """The kernel's launches counted in ``propagate_blocks.shapes``."""
+    return sum(propagate_blocks.shapes.values())

@@ -193,16 +193,29 @@ class BlocksRefBackend(_TileBackend):
 
 class CudaBackend(_TileBackend):
     """The hand-written Hopper kernel; in place of the JAX ``pallas`` plan.
-    Its tables are packed (``PackedBlocks``): built from the edge list, or
-    packed once from a dense table it is given.  It never builds a dense
-    table itself."""
+    Its tables are packed (``PackedBlocks``): built from the edge list,
+    packed once from a dense table it is given, or taken as they are from
+    a ``{sr.name: PackedBlocks}`` dict (what ``export_tables`` returns and
+    the store keeps).  It never builds a dense table itself."""
 
     name = "cuda"
 
+    def __init__(self, graph: Graph, *, tables=None, **kw):
+        if isinstance(tables, PackedBlocks):
+            # a packed table holds one add-identity's entries: only a
+            # semiring-keyed dict says which
+            raise TypeError("backend 'cuda' takes packed tables as a "
+                            "{sr.name: PackedBlocks} dict, not one shared table")
+        super().__init__(graph, tables=tables, **kw)
+
     def _adopt(self, table, sr):
+        if isinstance(table, PackedBlocks):
+            if sr.reads_weight and table.w is None:
+                raise ValueError(f"the packed table for '{sr.name}' holds no weights")
+            return table
         if not isinstance(table, BlockSparse):
-            raise TypeError(f"backend 'cuda' takes dense BlockSparse tables to "
-                            f"pack, got {type(table).__name__}")
+            raise TypeError(f"backend 'cuda' takes BlockSparse or PackedBlocks "
+                            f"tables, got {type(table).__name__}")
         return pack_blocks(table, sr)
 
     def _build(self, sr):

@@ -19,7 +19,6 @@ from repro.core.graph import random_dag, random_graph
 import repro_torch
 from repro_torch.apps import ppsp, reach
 from repro_torch.core import engine as tengine
-from repro_torch.core import runtime as truntime
 from repro_torch.core.engine import QuegelEngine
 from repro_torch.kernels import ops, ref
 
@@ -154,8 +153,7 @@ def test_pump_poll_and_interactive_match_jax():
 
 
 @pytest.mark.parametrize("option", [
-    "legacy", "mesh", "preemptive", "journal", "arg_carried", "warmup",
-    "index_fn", "gather_edges"])
+    "legacy", "mesh", "arg_carried", "warmup", "index_fn", "gather_edges"])
 def test_unported_options_raise(option):
     g = port_graph(_graph())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -174,19 +172,19 @@ def test_not_ported_messages_name_roadmap_titles():
     """Every option or backend that is not ported names a §1 queue item by
     its title, and every such title heads an item of the queue."""
     queue = _roadmap_queue()
-    titles = (set(tengine._NOT_PORTED.values()) | set(ops._NOT_PORTED.values())
-              | set(truntime._NOT_PORTED.values()))
+    titles = set(tengine._NOT_PORTED.values()) | set(ops._NOT_PORTED.values())
     pkg = Path(repro_torch.__file__).resolve().parent
     for path in pkg.rglob("*.py"):
         text = path.read_text()
         assert not re.search(r"§1 items? \d", text), path
         for ref_ in re.findall(r"ROADMAP\.md §1,([^)\"]*)", text):
             titles |= {t for t in re.findall(r"\*([^*]+)\*", ref_) if "{" not in t}
-    assert len(titles) >= 5, titles
+    assert len(titles) >= 4, titles
     for title in titles:
         assert f"**{title}**" in queue, title
-    with pytest.raises(NotImplementedError, match=r"\*Preemption\*"):
-        truntime.SlotRuntime(None, 2, preemptive=True)
+    with pytest.raises(NotImplementedError, match=r"\*Legacy A/B baseline\*"):
+        QuegelEngine(port_graph(_graph()), ppsp.BFSProgram(), 2,
+                     example_query=np.zeros(2, np.int32), device="cpu", legacy=True)
 
 
 # ------------------------------------------------ engine diagnostics

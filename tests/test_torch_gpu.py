@@ -111,9 +111,9 @@ def test_engine_cuda_plan_launches_the_kernel(cuda):
         eng = ppsp.make_bibfs_engine(g, capacity=4, backend=backend, block=16)
         for p in pairs:
             eng.submit(p)
-        before = frontier.propagate_blocks.launches
+        before = frontier.launches()
         results[backend] = eng.run_until_drained()
-        launched = frontier.propagate_blocks.launches - before
+        launched = frontier.launches() - before
         if backend == "cuda":
             assert launched >= eng.stats.rounds > 0
         else:
@@ -159,9 +159,9 @@ def test_app_cuda_plan_matches_coo(cuda, app):
         eng, qs = _app_engine(app, backend, cuda)
         for q in qs:
             eng.submit(q)
-        before = frontier.propagate_blocks.launches
+        before = frontier.launches()
         results[backend] = eng.run_until_drained()
-        launched = frontier.propagate_blocks.launches - before
+        launched = frontier.launches() - before
         assert (launched >= eng.stats.rounds > 0) if backend == "cuda" else launched == 0
     assert sorted(results["coo"]) == sorted(results["cuda"])
     for qid, r in results["coo"].items():
