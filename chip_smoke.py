@@ -26,8 +26,9 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      went through the kernel;
   4. one propagate at two shapes, Q=8 and a BFS frontier two hops out on
      barabasi_albert(n, 3) for n = 32768 (where the dense-tile kernel was
-     timed) and n = 262144 (the main path's): kernel, plain version and COO
-     scatter_reduce times, and the bound (the bytes the inputs need over
+     timed) and n = 262144 (the main path's): kernel, plain version, COO
+     scatter_reduce and gated COO (gather_edges=65536, one host sync) times,
+     and the bound (the bytes the inputs need over
      3.35 TB/s: per lit edge its position, x, mask and y once, the bitmap
      of the slots that hold entries and the source block of the lit ones);
      at n = 32768 the kernel is also held against the dense
@@ -60,11 +61,35 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      poisoned with NaN every round (POISONED, the other 7 as phase 5);
      (6f) the supervisor's SIGKILL crash test on the card.  Results,
      statuses and steps must be identical to the uninterrupted runs.
+  7. mutable graphs and the gated COO plan, reusing phase 3's graph, rev
+     view, pairs, tables, Hub2 index and answers and 6a's store, C=8 on
+     cuda: (7a) a BiBFS engine with arg_carried=True and edge capacity
+     |E| + 4096 per view, 8 queries in flight, through 10 deltas of 64
+     added and 64 deleted undirected pairs (default_rng(7), both
+     directions): the in-flight queries answer on version 0 as phase 3,
+     after each delta 32 fresh pairs answer as a fresh coo engine (4 as a
+     host BFS), both spliced packed tables equal to_packed_blocks of the
+     mutated views, shape_changes stays 0, and one delta of 5,000 edges
+     overflows the capacity and changes shapes once; per delta the host
+     splice, upload, table splice (against a full to_packed_blocks),
+     content_hash and cache invalidation times; (7b) a Hub2 engine with
+     index_fn=hub_index_updater(backend="cuda") through the same deltas:
+     each maintained index equals a pinned rebuild (every row re-labeled
+     through coo; 4 sampled affected rows against a host loop; the
+     engine's pinned build at the first and last delta), indexed answers
+     equal 7a's BiBFS answers, and a delta past the 1 % threshold takes
+     the rebuild path (equal to the engine's build); (7c) run_with_recovery of
+     the 256 pairs from 6a's store in three waves with a delta before each
+     later wave, crashes at rounds 5 and 17, equal to the uninterrupted
+     run, and a store saved at version 2 keeping its lineage; (7d) the 256
+     BiBFS pairs through the gated COO gather and through ungated COO,
+     twice each, both equal to phase 3.
 Every cuda path runs with the kernel's launch counts set to 0 just before
 it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
 4th, 8th, ... launch of each (semiring, dtype, Q) that the path
-launched (all but 6e, whose poisoned lanes are NaN).  The last lines are the card, one JSON object
+launched (all but 6e, whose poisoned lanes are NaN); phase 7 holds each
+delta's launches on that delta's spliced tables.  The last lines are the card, one JSON object
 describing the kernel (its launches per path, semiring, dtype and Q
 under "paths"), and {"ok": true, "device": {...}}.
 """
@@ -371,6 +396,32 @@ def host_bfs(graph, s: int) -> np.ndarray:
     return dist
 
 
+def host_hub_labels(graph, is_hub: np.ndarray, h: int):
+    """HubLabelBFS's row for hub h by a plain frontier loop over the host
+    COO: (dist, pre), pre[v] set when some shortest h-v path passes a hub
+    other than h."""
+    src, dst, _ = graph._edges_np()
+    dist = np.full(graph.n, 2**30, np.int64)
+    dist[h] = 0
+    pre = np.zeros(graph.n, bool)
+    front = np.zeros(graph.n, bool)
+    front[h] = True
+    other = is_hub.copy()
+    other[h] = False
+    step = 0
+    while front.any():
+        step += 1
+        act = front[src]
+        reach = np.zeros(graph.n, bool)
+        reach[dst[act]] = True
+        flagged = np.zeros(graph.n, bool)
+        flagged[dst[act & (other | pre)[src]]] = True
+        front = reach & (dist >= 2**30)
+        dist[front] = step
+        pre |= front & flagged
+    return dist, pre
+
+
 def device_breakdown(run, wall_s: float, what: str):
     """Run the same work again under torch.profiler and split the device
     time by kernel; the busy share is over the unprofiled wall time of the
@@ -656,9 +707,14 @@ def time_propagate(g, check_dense: bool) -> dict:
         del bs, packed, y_d
         gc.collect()
         torch.cuda.empty_cache()
+    gated = ops.CooBackend(g, gather_edges=65536)
+    gated_coo = lambda: gated.propagate(sr, dist, front)
+    if not torch.equal(gated_coo(), y_k):
+        fail(f"n={g.n} propagate: gated coo differs from the kernel")
     ms = event_ms(kern, 50)
     plain_ms = event_ms(plain, 10)
     library_ms = event_ms(lib, 50)
+    gated_ms = event_ms(gated_coo, 50)
     take_counts()  # timing launches are not a path's
     v = g.n
     per_edge = 4 + (4 if sr.reads_weight else 0)   # packed position (+ weight)
@@ -672,14 +728,16 @@ def time_propagate(g, check_dense: bool) -> dict:
     ops_ms = ops_ / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    active_edges = int(gated.graph.out_deg[front.any(0)].sum())
     print(f"phase 4 n={g.n}: kernel {ms!r} ms, plain {plain_ms!r} ms, coo "
-          f"scatter_reduce {library_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
-          f"({nbytes} bytes, {ops_} ops); for information, the dense layout's "
-          f"bytes {dense_bytes} ({dense_bytes / HBM_BYTES_PER_S * 1e3!r} ms)",
-          flush=True)
+          f"scatter_reduce {library_ms!r} ms, gated coo (gather_edges=65536, "
+          f"{active_edges} active edges, one host sync) {gated_ms!r} ms, bound "
+          f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, {ops_} ops); for "
+          f"information, the dense layout's bytes {dense_bytes} "
+          f"({dense_bytes / HBM_BYTES_PER_S * 1e3!r} ms)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, bound_bytes=nbytes, lit_edges=lit_edges,
-                held_slots=held_slots, lit_slots=lit_slots)
+                library_ms=library_ms, gated_coo_ms=gated_ms, bound_bytes=nbytes,
+                lit_edges=lit_edges, held_slots=held_slots, lit_slots=lit_slots)
 
 
 def phase_timing(g_main) -> dict:
@@ -1050,9 +1108,9 @@ def ft_store(tmp, g, pairs, main, paths):
     builds = [0]
     orig = ops.CudaBackend._build
 
-    def build(self, sr):
+    def build(self, sr, graph):
         builds[0] += 1
-        return orig(self, sr)
+        return orig(self, sr, graph)
 
     ops.CudaBackend._build = build
     try:
@@ -1264,10 +1322,12 @@ def ft_sigkill(tmp) -> None:
           "(the children's rc=-9 lines are the kills)", flush=True)
 
 
-def phase_fault_tolerance(g, pairs, main, terrain):
+def phase_fault_tolerance(g, pairs, main, terrain, tmp):
     """Phase 6: store, suspend, preempt, recover, poison and SIGKILL on the
     card, reusing phase 3's graph, rev view, pairs, tables, Hub2 index and
-    answers and phase 5's terrain data.  Returns (launches, path rows)."""
+    answers and phase 5's terrain data, in the temp dir ``tmp`` (which
+    keeps 6a's store for phase 7).  Returns (launches, path rows, the
+    store)."""
     t0 = time.perf_counter()
     main = dict(main, rev=main["rev"].to("cuda"), hub_index=main["hub_index"].to("cuda"),
                 tables=tables_to(main["tables"], "cuda"))
@@ -1277,24 +1337,379 @@ def phase_fault_tolerance(g, pairs, main, terrain):
     print(f"phase 6: phase 3's Hub2 index, rev view and tables and phase 5's terrain "
           f"graph and table moved back to the card in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    tmp = tempfile.mkdtemp()
     paths = []
-    try:
-        free = shutil.disk_usage(tmp).free
-        print(f"phase 6: temp dir free space {free} bytes", flush=True)
-        if free < MIN_FREE_DISK:
-            fail(f"6a: {free} bytes free in {tmp}, under the {MIN_FREE_DISK:.0f} the "
-                 "store and journals need")
-        store = ft_store(tmp, g, pairs, main, paths)
-        ft_suspend(g, pairs, main, paths)
-        ft_preempt(terrain, paths)
-        ft_recover(tmp, store, pairs, main, paths)
-        ft_poison(terrain, paths)
-        ft_sigkill(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    free = shutil.disk_usage(tmp).free
+    print(f"phase 6: temp dir free space {free} bytes", flush=True)
+    if free < MIN_FREE_DISK:
+        fail(f"6a: {free} bytes free in {tmp}, under the {MIN_FREE_DISK:.0f} the "
+             "store and journals need")
+    store = ft_store(tmp, g, pairs, main, paths)
+    ft_suspend(g, pairs, main, paths)
+    ft_preempt(terrain, paths)
+    ft_recover(tmp, store, pairs, main, paths)
+    ft_poison(terrain, paths)
+    ft_sigkill(tmp)
     launches = sum(r["launches"] for r in paths)
     print(f"phase 6: {launches} kernel launches in the cuda runs; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, paths, store
+
+
+# ------------------------------------------------------------ phase 7
+MUT_DELTAS = 10        # in-capacity deltas of 7a and 7b
+MUT_PAIRS = 64         # added and deleted undirected pairs per delta (x2 directions)
+MUT_HEADROOM = 4096    # 7a's edge capacity over |E|, per view
+MUT_OVERFLOW = 2500    # undirected pairs of 7a's overflowing delta (5,000 edges)
+MUT_REBUILD = 8192     # undirected pairs of 7b's delta past the 1 % threshold
+MUT_FRESH = 32         # fresh pairs answered after each delta
+MUT_BFS = 4            # of them checked against a host BFS
+GATHER_EDGES = 65536   # the gated COO chunk of phases 4 and 7d
+
+
+def undirected_delta(g, rng, n_add: int, n_del: int):
+    """A validated delta on the undirected graph ``g``: ``n_add`` absent
+    pairs added and ``n_del`` present ones deleted, each in both
+    directions."""
+    s, d, _ = g._edges_np()
+    n = g.n
+    keys = np.sort(s.astype(np.int64) * n + d)
+    adds = set()
+    while len(adds) < n_add:
+        u, v = (int(x) for x in rng.integers(0, g.n_real, 2))
+        a, b = min(u, v), max(u, v)
+        k = np.searchsorted(keys, a * n + b)
+        if a != b and (a, b) not in adds and not (k < len(keys) and keys[k] == a * n + b):
+            adds.add((a, b))
+    dels = set()
+    while len(dels) < n_del:
+        i = int(rng.integers(len(s)))
+        a, b = int(s[i]), int(d[i])
+        if a < b:
+            dels.add((a, b))
+    both = lambda pairs: (np.concatenate([pairs, pairs[:, ::-1]]) if len(pairs)
+                          else np.zeros((0, 2), np.int32))
+    a_ = np.asarray(sorted(adds), np.int32).reshape(-1, 2)
+    d_ = np.asarray(sorted(dels), np.int32).reshape(-1, 2)
+    return g.make_delta(both(a_), both(d_))
+
+
+def same_packed(a, b) -> bool:
+    return all((getattr(a, f) is None) == (getattr(b, f) is None)
+               and (getattr(a, f) is None or torch.equal(getattr(a, f), getattr(b, f)))
+               for f in ("src_ids", "nslots", "row_ptr", "entries", "w"))
+
+
+def new_rows(paths: list, before: int) -> set:
+    """The (semiring, dtype, Q) keys of the path rows added since ``before``."""
+    return {(r["semiring"], r["dtype"], r["q"]) for r in paths[before:]}
+
+
+def mut_bibfs(g, pairs, main, paths) -> dict:
+    """7a: BiBFS on cuda with arg-carried editions under 10 deltas, 8
+    queries in flight at the first; then one overflowing delta."""
+    from repro_torch.apps.ppsp import BiBFSProgram, make_bibfs_engine
+    from repro_torch.core.engine import QuegelEngine
+    from repro_torch.core.semiring import MIN_RIGHT
+
+    E = g.num_edges
+    eng = QuegelEngine(g, BiBFSProgram(), FT_C, backend="cuda", blocks=main["tables"]["default"],
+                       aux_graphs={"rev": (main["rev"], main["tables"]["rev"])},
+                       example_query=np.zeros(2, np.int32), arg_carried=True,
+                       edge_capacity=E + MUT_HEADROOM, result_cache=4096)
+    rng = np.random.default_rng(7)
+    inflight = [eng.submit(p) for p in pairs[:FT_C]]
+    counted("mut_bibfs", lambda: eng.run_round(), paths)
+    live0 = int(eng.runtime.live.sum())
+    deltas, fresh_log = [], []
+
+    def step(delta, i, label):
+        info = eng.apply_delta(delta)
+        fresh = rng.integers(0, g.n_real, (MUT_FRESH, 2)).astype(np.int32)
+        qids = [eng.submit(p) for p in fresh]
+        before = len(paths)
+        counted("mut_bibfs", lambda: drain_submitted(eng), paths)
+        check_launches("mut_bibfs", lambda: drain(eng, [p[::-1].copy() for p in fresh]),
+                       new_rows(paths, before))
+        got = {j: eng.runtime.results[q] for j, q in enumerate(qids)}
+        ref_eng = make_bibfs_engine(eng.graph, capacity=FT_C, backend="coo")
+        for p in fresh:
+            ref_eng.submit(p)
+        if not same_results(got, ref_eng.run_until_drained()):
+            fail(f"7a {label}: the cuda answers differ from a fresh coo engine's")
+        for j, (s, t) in enumerate(fresh[:MUT_BFS]):
+            d = host_bfs(eng.graph, int(s))[int(t)]
+            if int(got[j]["dist"]) != (d if d >= 0 else 2**30):
+                fail(f"7a {label}: d({s},{t}) = {int(got[j]['dist'])}, host BFS says {d}")
+        full_s = []
+        for view, gv in (("default", eng.graph), ("rev", eng.aux_graphs["rev"])):
+            (want, dt) = sync_time(lambda: gv.to_packed_blocks(128, MIN_RIGHT))
+            full_s.append(dt)
+            if not same_packed(eng._backends[view].tables["min_right"], want):
+                fail(f"7a {label}: the spliced {view} table differs from to_packed_blocks")
+        ms = info["ms"]
+        print(f"  7a {label}: {delta.size} edges (both views), version {info['version']}; "
+              f"host splice {ms['splice']:.3f} ms, upload {ms['upload']:.3f} ms, table "
+              f"splice {ms['tables']:.3f} ms (2 views) against full to_packed_blocks "
+              f"{1e3 * sum(full_s):.3f} ms, finish (padding, table upload, work items) "
+              f"{ms['finish']:.3f} ms, content_hash {ms['hash']:.3f} ms, cache invalidation "
+              f"{ms['invalidate']:.4f} ms ({info['cache_invalidated']} dropped); "
+              f"shape_changes {eng.stats.shape_changes}", flush=True)
+        fresh_log.append((fresh, got))
+        return info
+
+    for i in range(MUT_DELTAS):
+        delta = undirected_delta(eng.graph, rng, MUT_PAIRS, MUT_PAIRS)
+        deltas.append(delta)
+        step(delta, i, f"delta {i + 1}")
+        if i == 0:
+            for j, q in enumerate(inflight):
+                if not same_results({0: eng.runtime.results[q]}, {0: main["bibfs"][j]}):
+                    fail(f"7a: in-flight query {q} did not answer on version 0")
+    if eng.stats.shape_changes or eng.shape_counts != {0: 1}:
+        fail(f"7a: in-capacity deltas changed shapes: {eng.shape_counts}")
+    big = undirected_delta(eng.graph, rng, MUT_OVERFLOW, 0)
+    step(big, MUT_DELTAS, "overflow")
+    if eng.stats.shape_changes != 1:
+        fail(f"7a: the overflowing delta changed shapes {eng.stats.shape_changes} times")
+    print(f"  7a: {live0} of {FT_C} queries in flight at delta 1 answered on version 0 "
+          f"as phase 3; after every delta {MUT_FRESH} fresh answers == a fresh coo engine "
+          f"({MUT_BFS} == host BFS), both spliced tables == to_packed_blocks; "
+          f"shape_changes 0 over {MUT_DELTAS} deltas, 1 at the overflow (capacity "
+          f"{eng._view_caps['default']} edges)", flush=True)
+    return dict(deltas=deltas, fresh=fresh_log[:MUT_DELTAS], graph=eng.graph)
+
+
+def mut_hub2(g, main, mut, paths) -> None:
+    """7b: the Hub2 engine through the same deltas, its index maintained on
+    the card; then a delta past the 1 % threshold.  Each maintained index
+    is held against every row re-labeled through the coo plan and, on
+    MUT_BFS sampled affected rows, against a host loop that shares no code
+    with the port; at the first and last delta also against the engine's
+    pinned build (a Quegel job of k queries, ~3-5 s each)."""
+    from repro_torch.apps.hub2 import (HubIndex, Hub2PPSP, _relabel_hubs, affected_hubs,
+                                       build_hub_index, hub_index_updater,
+                                       maintain_hub_index)
+    from repro_torch.core.engine import QuegelEngine
+    from repro_torch.core.semiring import INF
+    from repro_torch.kernels import ops
+
+    upd = hub_index_updater(backend="cuda")
+    eng = QuegelEngine(g, Hub2PPSP(), FT_C, index=main["hub_index"], index_fn=upd,
+                       backend="cuda", blocks=main["tables"]["default"],
+                       aux_graphs={"rev": (main["rev"], main["tables"]["rev"])},
+                       example_query=np.zeros(2, np.int32))
+    hubs = main["hub_index"].hub_ids.cpu().numpy()
+    is_hub_np = main["hub_index"].is_hub.cpu().numpy()
+    k = len(hubs)
+    rng = np.random.default_rng(9)
+
+    def same_index(a, b) -> bool:
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("hub_ids", "is_hub", "hub_dist", "core"))
+
+    def pinned(graph):
+        """The index rebuilt on ``graph`` with the hub set pinned: every
+        row re-labeled through the coo plan (no table, no kernel)."""
+        plan = ops.make_backend("coo", graph)
+        idx0 = eng.index
+        dist, pre = _relabel_hubs(plan, idx0.is_hub, idx0.hub_ids, np.arange(k))
+        return HubIndex(idx0.hub_ids, idx0.is_hub, dist,
+                        (dist < INF) & (~pre | idx0.is_hub[None, :]))
+
+    for i, (delta, (fresh, want)) in enumerate(zip(mut["deltas"], mut["fresh"])):
+        old = eng.index
+        rows = affected_hubs(old, delta)
+        before = len(paths)
+        info, wall = sync_time(lambda: counted("mut_hub2", lambda: eng.apply_delta(delta),
+                                               paths)[0])
+        qids = [eng.submit(p) for p in fresh]
+        counted("mut_hub2", lambda: drain_submitted(eng), paths)
+        got = {j: eng.runtime.results[q] for j, q in enumerate(qids)}
+        if any(int(got[j]["dist"]) != int(want[j]["dist"]) for j in got):
+            fail(f"7b delta {i + 1}: indexed answers differ from 7a's BiBFS answers")
+        plan = upd.state["plan"]
+
+        def recheck():
+            dist, pre = _relabel_hubs(plan, old.is_hub, old.hub_ids, rows)
+            r = torch.as_tensor(rows, device=dist.device).long()
+            if not torch.equal(dist, eng.index.hub_dist[r]):
+                fail(f"7b delta {i + 1}: a second relabel differs")
+            drain(eng, [p[::-1].copy() for p in fresh])
+
+        check_launches("mut_hub2", recheck, new_rows(paths, before))
+        if not same_index(eng.index, pinned(eng.graph)):
+            fail(f"7b delta {i + 1}: the maintained index differs from a pinned rebuild")
+        sample = rng.choice(rows, min(MUT_BFS, len(rows)), replace=False)
+        for row in sample:
+            dist, pre = host_hub_labels(eng.graph, is_hub_np, int(hubs[row]))
+            core = (dist < 2**30) & (~pre | is_hub_np)
+            if not (np.array_equal(eng.index.hub_dist[row].cpu().numpy(), dist)
+                    and np.array_equal(eng.index.core[row].cpu().numpy(), core)):
+                fail(f"7b delta {i + 1}: hub row {row} differs from the host loop")
+        if i in (0, len(mut["deltas"]) - 1):
+            built, t = [None], time.perf_counter()
+            check_launches("mut_hub2_pinned", lambda: built.__setitem__(0, build_hub_index(
+                eng.graph, k, capacity=64, backend="cuda", hubs=hubs)), set())
+            bs = time.perf_counter() - t
+            if not same_index(eng.index, built[0]):
+                fail(f"7b delta {i + 1}: the maintained index differs from the engine's "
+                     "pinned rebuild")
+            extra = f"; == the engine's pinned rebuild (C=64, kernel checked, {bs:.3f} s)"
+        else:
+            extra = ""
+        print(f"  7b delta {i + 1}: {info['index']['mode']}, {len(rows)} of {k} hubs "
+              f"affected, maintenance {info['ms']['index'] / 1e3:.3f} s (apply_delta "
+              f"{wall:.3f} s) against phase 3's cuda build {main['build_s']:.3f} s; index "
+              f"== all {k} rows re-labeled through coo, rows {sorted(sample.tolist())} == "
+              f"the host loop; {MUT_FRESH} indexed answers == 7a's BiBFS"
+              f"{extra}", flush=True)
+    rng = np.random.default_rng(8)
+    big = undirected_delta(eng.graph, rng, MUT_REBUILD, 0)
+    old = eng.index
+    before = len(paths)
+    info, wall = sync_time(lambda: counted("mut_hub2_rebuild", lambda: eng.apply_delta(big),
+                                           paths)[0])
+    if info["index"]["mode"] != "rebuild":
+        fail(f"7b: a delta of {big.size} edges took the {info['index']['mode']} path")
+    plan = upd.state["plan"]
+
+    def rerun():
+        again, _ = maintain_hub_index(eng.graph, old, big, plan=plan)
+        if not same_index(eng.index, again):
+            fail("7b: a second rebuild differs")
+
+    check_launches("mut_hub2_rebuild", rerun, new_rows(paths, before))
+    built, t = [None], time.perf_counter()
+    check_launches("mut_hub2_pinned", lambda: built.__setitem__(0, build_hub_index(
+        eng.graph, k, capacity=64, backend="cuda")), set())
+    bs = time.perf_counter() - t
+    if not same_index(eng.index, built[0]):
+        fail("7b: the rebuilt index differs from the engine's build")
+    print(f"  7b rebuild: {big.size} edges ({100 * info['index']['frac']:.3f} % of |E|) took "
+          f"the rebuild path (hubs re-picked, all {k} rows re-labeled) in "
+          f"{info['ms']['index'] / 1e3:.3f} s; equal to a second rebuild and to the "
+          f"engine's build (C=64, kernel checked, {bs:.3f} s)", flush=True)
+
+
+MUT_WAVES = (16, 32)   # 7c: the qids at which waves 2 and 3 are submitted
+
+
+def mut_recover(tmp, store, pairs, mut, paths) -> None:
+    """7c: run_with_recovery of the 256 pairs from 6a's store, in three
+    waves with a delta before each later wave, crashes at rounds 5 and 17,
+    against the same run uninterrupted; then a store saved at version 2.
+
+    A delta lands at the round boundary where the queue has just emptied
+    (every query of the current wave admitted, some still in flight) and
+    the next wave is submitted right after it: each query's version is
+    then its wave's whatever the schedule, which recovery changes, and
+    the in-flight ones are pinned by the snapshot the mutation writes
+    first.  (A delta at a fixed round would pin the queries admitted
+    around it to versions that depend on the schedule.)"""
+    from repro_torch.core.store import Store, load_engine_store, save_engine_store
+    from repro_torch.launch.supervise import _result_map, run_with_recovery
+    from repro_torch.train.fault import FailureInjector
+
+    starts = (0,) + MUT_WAVES + (len(pairs),)
+    waves = [pairs[a:b] for a, b in zip(starts, starts[1:])]
+    at = []
+
+    def boot():
+        return bibfs_engine(store.get("graph", device="cuda"),
+                            store.get("aux_graphs", device="cuda")["rev"],
+                            store.get("tables", device="cuda"))
+
+    def on_round(eng, rounds):
+        rt, v = eng.runtime, eng.graph.version
+        if v < len(MUT_WAVES) and rt.pending() == 0 and rt._next_qid == starts[v + 1]:
+            live = int(rt.live.sum())  # the mutation's snapshot suspends them
+            eng.apply_delta(mut["deltas"][v])
+            for j, p in enumerate(waves[v + 1]):
+                eng.submit(p, qid=starts[v + 1] + j)
+            at.append((v + 1, rounds, live))
+
+    def run(jname, crashes):
+        inj = FailureInjector(fail_at_steps=crashes) if crashes else None
+        return run_with_recovery(boot, os.path.join(tmp, jname), list(waves[0]),
+                                 snapshot_every=SNAPSHOT_EVERY, fsync=True, injector=inj,
+                                 on_round=on_round)
+
+    ((eng, info), wall) = sync_time(lambda: counted(
+        "mut_recover", lambda: run("mut.wal", {5, 17}), paths)[0])
+    crashed_at = list(at)
+    if info["restarts"] != 2 or info["mutations_replayed"] < 1:
+        fail(f"7c: {info}")
+    base, t0 = [None], time.perf_counter()
+    at.clear()
+    check_launches("mut_recover", lambda: base.__setitem__(0, run("mut_base.wal", set())),
+                   path_keys(paths, "mut_recover"))
+    base_s = time.perf_counter() - t0
+    beng = base[0][0]
+    if _result_map(eng) != _result_map(beng) or len(_result_map(eng)) != len(pairs):
+        fail("7c: the recovered result map differs from the uninterrupted run with deltas")
+    if eng.graph.content_hash() != beng.graph.content_hash() or eng.graph.version != 2:
+        fail("7c: the recovered graph is not the uninterrupted run's version 2")
+    s2 = Store(os.path.join(tmp, "store_v2"))
+    save_engine_store(s2, beng.graph, aux_graphs={"rev": beng.aux_graphs["rev"]})
+    got = load_engine_store(s2, device="cuda")["graph"]
+    meta = s2.manifest("graph")["meta"]
+    if (got.version, got.parent_hash, meta["graph_version"], meta["parent_hash"]) != (
+            2, beng.graph.parent_hash, 2, beng.graph.parent_hash) or \
+            got.content_hash() != beng.graph.content_hash():
+        fail("7c: a store saved at version 2 lost its lineage")
+    size = os.path.getsize(os.path.join(tmp, "mut.wal"))
+    print(f"  7c recover: deltas (version, round of its boot, queries in flight) "
+          f"{crashed_at} with crashes, {at} without; restarts {info['restarts']}, last "
+          f"recovery replayed {info['mutations_replayed']} mutation(s) through the hash "
+          f"chain and resumed {info['resumed_from_snapshot']} from a snapshot; journal "
+          f"{size} bytes, wall {wall:.3f} s (uninterrupted {base_s:.3f} s, kernel "
+          f"checked); result map == the uninterrupted run's; a store saved at version 2 "
+          f"boots with graph_version 2 and its parent_hash", flush=True)
+
+
+def mut_gated(g, pairs, main) -> None:
+    """7d: the 256 BiBFS pairs through the gated COO gather, timed against
+    the same pairs through ungated COO (exact graph, no padding) in the
+    order ungated, gated, gated, ungated."""
+    from repro_torch.apps.ppsp import make_bibfs_engine
+    from repro_torch.launch.supervise import _result_map
+
+    walls = {None: [], GATHER_EDGES: []}
+    for ge in (None, GATHER_EDGES, GATHER_EDGES, None):
+        eng = make_bibfs_engine(g, capacity=FT_C, backend="coo", gather_edges=ge)
+        take_counts()
+        _, wall = sync_time(lambda: drain(eng, pairs))
+        if take_counts()[0]:
+            fail("7d: the coo plan launched the kernel")
+        if _result_map(eng) != main["bibfs_map"]:
+            fail(f"7d: coo (gather_edges={ge}) answers, statuses or steps differ from "
+                 "phase 3's")
+        walls[ge].append(wall)
+    print(f"  7d gated coo: {len(pairs)} BiBFS pairs, gather_edges={GATHER_EDGES}, "
+          f"{eng.stats.rounds} rounds, wall {walls[GATHER_EDGES]} s against ungated coo "
+          f"{walls[None]} s; both result maps == phase 3's", flush=True)
+
+
+def phase_mutation(g, pairs, main, tmp, store):
+    """Phase 7: mutable graphs and the gated COO plan on the card, reusing
+    phase 3's graph, rev view, pairs, tables, Hub2 index and answers and
+    6a's store.  Returns (launches, path rows)."""
+    t0 = time.perf_counter()
+    main = dict(main, rev=main["rev"].to("cuda"), hub_index=main["hub_index"].to("cuda"),
+                tables=tables_to(main["tables"], "cuda"))
+    paths, mut = [], {}
+    parts = (("7a", lambda: mut.update(mut_bibfs(g, pairs, main, paths))),
+             ("7b", lambda: mut_hub2(g, main, mut, paths)),
+             ("7c", lambda: mut_recover(tmp, store, pairs, mut, paths)),
+             ("7d", lambda: mut_gated(g, pairs, main)))
+    for name, part in parts:
+        t = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    launches = sum(r["launches"] for r in paths)
+    print(f"phase 7: {launches} kernel launches in the cuda runs; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches, paths
 
@@ -1321,12 +1736,21 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     app_launches, app_paths, terrain = phase_apps(g)
-    ft_launches, ft_paths = phase_fault_tolerance(g, pairs, main_run, terrain)
+    tmp = tempfile.mkdtemp()
+    try:
+        ft_launches, ft_paths, store = phase_fault_tolerance(g, pairs, main_run, terrain, tmp)
+        del terrain
+        gc.collect()
+        torch.cuda.empty_cache()
+        mut_launches, mut_paths = phase_mutation(g, pairs, main_run, tmp, store)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     row = dict(name="propagate_blocks", route="cuda", layout="packed",
                source="src/repro_torch/csrc/frontier.cu",
                replaces="src/repro/kernels/frontier.py:138",
-               launches=launches + app_launches + ft_launches, max_abs_err=max_err,
-               **timing, paths=main_run["paths"] + app_paths + ft_paths)
+               launches=launches + app_launches + ft_launches + mut_launches,
+               max_abs_err=max_err, **timing,
+               paths=main_run["paths"] + app_paths + ft_paths + mut_paths)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))

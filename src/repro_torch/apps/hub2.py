@@ -15,8 +15,12 @@ labels (folded into admission), then a BiBFS over the non-hub induced
 subgraph with the early cutoff at superstep 1 + floor(d_ub / 2).
 
 ``load_or_build_hub_index`` boots the index from the durable store
-(``core/store.py``) and builds it only on first use.  Incremental
-maintenance waits for a later slice (ROADMAP.md §1, *Mutable graphs*).
+(``core/store.py``) and builds it only on first use.
+``maintain_hub_index`` carries the index across a graph mutation: with
+the hub set fixed it re-labels only the hubs a delta can affect, or past
+a threshold re-picks the hubs and re-labels them all, each time as the
+same HubLabelBFS driven batched on the device through a propagation plan
+(the ``cuda`` plan's kernel on spliced tables) rather than the engine.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.core.engine import QuegelEngine, StepCtx, VertexProgram
 from repro_torch.core.graph import Graph
 from repro_torch.core.semiring import INF, MAX_RIGHT, MIN_RIGHT
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass
@@ -171,6 +176,143 @@ def load_or_build_hub_index(store, graph: Graph, k: int, capacity: int = 8,
                                              device=device, **kw)
     store.put(name, index, meta={"graph_hash": ghash, "k": int(k)})
     return index, {"built": True, "index_rounds": int(rounds), "graph_hash": ghash}
+
+
+# ------------------------------------------------ incremental maintenance
+def _relabel_hubs(plan, is_hub: torch.Tensor, hub_ids: torch.Tensor, rows,
+                  chunk: int = 256):
+    """:class:`HubLabelBFS` for the ``rows`` hub queries over ``plan``'s
+    graph, driven without the engine: ``chunk`` hubs at a time as one
+    (chunk, V) frontier through ``plan.propagate``, every lane advancing
+    each superstep (a finished lane's frontier is empty, so its rows stay
+    put), one device->host sync per superstep.  The JAX package runs one
+    host numpy BFS per hub; the rows are bit-identical.  Returns ``(dist,
+    pre)``, (m, V) int32 and bool on the graph's device."""
+    g = plan.graph
+    dev = g.device
+    hubs = hub_ids.to(dev)[torch.as_tensor(np.asarray(rows), device=dev).long()]
+    prog = HubLabelBFS(is_hub.to(dev))
+    propagate = lambda sr, x, frontier=None, which="default": plan.propagate(sr, x, frontier)
+    dist_out = torch.empty((len(hubs), g.n), dtype=torch.int32, device=dev)
+    pre_out = torch.empty((len(hubs), g.n), dtype=torch.bool, device=dev)
+    for lo in range(0, len(hubs), chunk):
+        q = hubs[lo:lo + chunk, None].to(torch.int32)
+        st = prog.init(g, q)
+        step = torch.zeros(len(q), dtype=torch.int32, device=dev)
+        while True:
+            step = step + 1
+            st, _ = prog.superstep(st, StepCtx(g, q, step, propagate))
+            if not bool(st["frontier"].any()):
+                break
+        dist_out[lo:lo + len(q)] = st["dist"]
+        pre_out[lo:lo + len(q)] = st["pre"]
+    return dist_out, pre_out
+
+
+def affected_hubs(index: HubIndex, delta) -> np.ndarray:
+    """Hub rows whose labels (dist or pre flags) can change under ``delta``.
+
+    With ``d_h = hub_dist[h]`` on the PRE-mutation graph:
+
+    * insert (u, v) affects h  iff  d_h[u] + 1 <= d_h[v] — strict ``<``
+      shortens some distance; equality adds a shortest-path-DAG edge,
+      which can only flip pre flags.
+    * delete (u, v) affects h  iff  d_h[u] + 1 == d_h[v] — only edges on
+      h's shortest-path DAG carry its BFS.
+
+    Evaluated on the device over the delta's columns only, in int64 (INF
+    + 1 never wraps).
+    """
+    hd = index.hub_dist
+    aff = torch.zeros(hd.shape[0], dtype=torch.bool, device=hd.device)
+    col = lambda a: hd[:, torch.as_tensor(np.asarray(a), device=hd.device).long()].long()
+    if len(delta.add_src):
+        aff |= (col(delta.add_src) + 1 <= col(delta.add_dst)).any(1)
+    if len(delta.del_src):
+        aff |= (col(delta.del_src) + 1 == col(delta.del_dst)).any(1)
+    return np.nonzero(aff.cpu().numpy())[0]
+
+
+def maintain_hub_index(graph: Graph, index: HubIndex, delta, *,
+                       threshold: float = 0.01, capacity: int = 8,
+                       backend: str = "coo", plan=None, chunk: int = 256, **kw):
+    """Maintain a Hub² index across one ``Graph.apply_delta``.  Returns
+    ``(new_index, info)``.
+
+    Small deltas (``delta.size <= threshold * |E|``) take the incremental
+    path: the hub set stays FIXED, only the rows ``affected_hubs`` names
+    are re-labeled and ``core`` is recomputed for exactly those rows, into
+    new arrays.  Past the threshold the hubs are re-picked from the new
+    degrees and every row is re-labeled.  Both re-label through
+    :func:`_relabel_hubs` over ``plan``, a propagation plan over
+    ``graph`` (default ``ops.make_backend(backend, graph)``), ``chunk``
+    hubs at a time; ``capacity`` is the JAX package's engine-rebuild slot
+    count, accepted for its signature and unused here.
+
+    Fixed-hub maintenance is sound — ``Hub2PPSP`` answers correctly under
+    any hub set — but hub quality can drift; the rebuild threshold is
+    also the quality backstop.  ``info``: mode ('incremental'|'rebuild'),
+    k, frac (delta.size/|E|), affected_hubs (k on rebuild), threshold.
+    """
+    k = index.k
+    frac = delta.size / max(1, graph.num_edges)
+    base = dict(k=k, frac=float(frac), threshold=float(threshold))
+    if plan is None:
+        plan = ops.make_backend(backend, graph, block=kw.get("block", 128))
+    dev = index.hub_dist.device
+
+    def core_of(dist, pre, is_hub):
+        return ((dist < INF) & (~pre | is_hub.to(pre.device)[None, :])).to(dev)
+
+    if frac > threshold:
+        hubs = pick_hubs(graph, k)
+        is_hub = torch.zeros(graph.n, dtype=torch.bool, device=dev)
+        is_hub[torch.from_numpy(hubs).to(dev).long()] = True
+        hub_ids = torch.from_numpy(hubs).to(dev)
+        dist, pre = _relabel_hubs(plan, is_hub, hub_ids, np.arange(k), chunk)
+        return HubIndex(hub_ids=hub_ids, is_hub=is_hub, hub_dist=dist.to(dev),
+                        core=core_of(dist, pre, is_hub)), dict(
+            mode="rebuild", affected_hubs=k, **base)
+    rows = affected_hubs(index, delta)
+    if not len(rows):
+        return index, dict(mode="incremental", affected_hubs=0, **base)
+    dist_rows, pre_rows = _relabel_hubs(plan, index.is_hub, index.hub_ids, rows, chunk)
+    r = torch.as_tensor(rows, device=dev).long()
+    hub_dist = index.hub_dist.clone()
+    core = index.core.clone()
+    hub_dist[r] = dist_rows.to(dev)
+    core[r] = core_of(dist_rows, pre_rows, index.is_hub)
+    new_index = HubIndex(hub_ids=index.hub_ids, is_hub=index.is_hub,
+                         hub_dist=hub_dist, core=core)
+    return new_index, dict(mode="incremental", affected_hubs=int(len(rows)), **base)
+
+
+def hub_index_updater(threshold: float = 0.01, capacity: int = 8,
+                      backend: str = "coo", **kw):
+    """Factory for ``QuegelEngine(index_fn=...)``: adapts
+    :func:`maintain_hub_index` to the engine's maintainer protocol
+    ``fn(new_graph, old_index, delta) -> (new_index, info)``.
+
+    It keeps the propagation plan the re-labels run over and refreshes it
+    with each delta (``PropagateBackend.refresh``: the ``cuda`` plan's
+    tables spliced row by row) while the graphs it is given form a chain
+    (``new_graph.parent_hash`` is its plan's content hash); otherwise it
+    starts a new plan on ``new_graph``.  ``fn.state["plan"]`` is the plan
+    of the last call."""
+    state: dict = {}
+
+    def fn(new_graph, old_index, delta):
+        plan = state.get("plan")
+        if plan is not None and plan.graph.content_hash() == new_graph.parent_hash:
+            plan = plan.refresh(new_graph, delta)
+        else:
+            plan = ops.make_backend(backend, new_graph, block=kw.get("block", 128))
+        state["plan"] = plan
+        return maintain_hub_index(new_graph, old_index, delta, threshold=threshold,
+                                  capacity=capacity, backend=backend, plan=plan, **kw)
+
+    fn.state = state
+    return fn
 
 
 class Hub2PPSP(VertexProgram):

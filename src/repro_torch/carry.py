@@ -1,13 +1,13 @@
 """Carry state built elsewhere into the port.
 
 Each function takes a dict of numpy arrays (and ints) keyed by the JAX
-package's dataclass field names — ``Graph``, ``BlockSparse``,
-``HubIndex``, ``ReachIndex``, ``XMLIndex`` — or the arrays themselves
-(an ``InvertedIndex``'s tokens, terrain coords), and returns the port's
-object on ``device``.  Fields the port does not
-hold yet (mutation lineage, capacity padding) are ignored.  With this a
-table or index one package built can be queried by the other, so query
-parity is testable apart from build parity.
+package's dataclass field names — ``Graph`` (with its mutation lineage
+and capacity padding), ``EdgeDelta``, ``BlockSparse``, ``HubIndex``,
+``ReachIndex``, ``XMLIndex`` — or the arrays themselves (an
+``InvertedIndex``'s tokens, terrain coords), and returns the port's
+object on ``device``.  With this a graph, delta, table or index one
+package built can be used by the other, so query parity is testable apart
+from build parity.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.apps.hub2 import HubIndex
 from repro_torch.apps.keyword import InvertedIndex
 from repro_torch.apps.reach import ReachIndex
 from repro_torch.apps.xmlkw import XMLIndex
-from repro_torch.core.graph import BlockSparse, Graph
+from repro_torch.core.graph import BlockSparse, EdgeDelta, Graph
 
 
 def _t(a, dev) -> torch.Tensor:
@@ -27,8 +27,8 @@ def _t(a, dev) -> torch.Tensor:
 
 
 def graph_from_numpy(d: dict, device=None) -> Graph:
-    if d.get("nnz") is not None:
-        raise ValueError("capacity-padded graphs are not ported yet: pass graph.trimmed()")
+    """A graph with its lineage (``version``, ``parent_hash``) and, for a
+    capacity-padded graph, its padding and logical edge count ``nnz``."""
     dev = resolve_device(device)
     opt = lambda k: None if d.get(k) is None else _t(d[k], dev)
     return Graph(
@@ -37,7 +37,15 @@ def graph_from_numpy(d: dict, device=None) -> Graph:
         in_deg=_t(d["in_deg"], dev), out_deg=_t(d["out_deg"], dev),
         csr_row=opt("csr_row"), csr_src=opt("csr_src"),
         csr_dst=opt("csr_dst"), csr_w=opt("csr_w"),
+        version=int(d.get("version") or 0), parent_hash=d.get("parent_hash"),
+        nnz=None if d.get("nnz") is None else int(d["nnz"]),
     )
+
+
+def edge_delta_from_numpy(d: dict) -> EdgeDelta:
+    """An ``EdgeDelta`` (host numpy in both packages)."""
+    return EdgeDelta(*(np.array(d[k]) for k in
+                       ("add_src", "add_dst", "add_w", "del_src", "del_dst")))
 
 
 def blocks_from_numpy(d: dict, device=None) -> BlockSparse:

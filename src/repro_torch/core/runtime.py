@@ -138,6 +138,10 @@ class SlotStats:
     service_times: list = dataclasses.field(default_factory=list)
     # live slots per executed round
     slot_occupancy: list = dataclasses.field(default_factory=list)
+    # cached results dropped because a graph mutation made their version's
+    # content unreachable, and the time the invalidation took
+    cache_invalidations: int = 0
+    cache_invalidation_ms: float = 0.0
 
     @property
     def wall_time(self) -> float:
@@ -327,16 +331,35 @@ _MISS = object()
 
 
 class ResultCache:
-    """LRU of extracted results keyed by canonicalized query hash
-    (``<graph content hash>:<query hash>`` for the engine).  Invalidation
-    by graph version comes with the mutation slice (ROADMAP.md §1,
-    *Mutable graphs*)."""
+    """LRU of extracted results keyed by canonicalized query hash.
+
+    Keys are ``<content-hash>:<query-hash>`` (the engine prefixes every
+    key with the graph version's content hash), so beside the LRU order
+    the cache buckets keys by that prefix: version invalidation after a
+    mutation (``invalidate_except``) pops whole buckets, O(dropped), not
+    O(cache size).  Unprefixed keys share the '' bucket.
+    """
 
     def __init__(self, size: int):
         if size < 1:
             raise ValueError("result cache size must be >= 1")
         self.size = int(size)
         self._d: collections.OrderedDict[str, Any] = collections.OrderedDict()
+        self._buckets: dict[str, set] = {}
+
+    @staticmethod
+    def _prefix(key: str) -> str:
+        key = str(key)
+        return key.split(":", 1)[0] if ":" in key else ""
+
+    def _remove(self, key: str) -> None:
+        del self._d[key]
+        p = self._prefix(key)
+        b = self._buckets.get(p)
+        if b is not None:
+            b.discard(key)
+            if not b:
+                del self._buckets[p]
 
     def get(self, key: str):
         if key not in self._d:
@@ -347,13 +370,32 @@ class ResultCache:
     def put(self, key: str, value) -> None:
         self._d[key] = value
         self._d.move_to_end(key)
+        self._buckets.setdefault(self._prefix(key), set()).add(key)
         while len(self._d) > self.size:
-            self._d.popitem(last=False)
+            self._remove(next(iter(self._d)))
+
+    def invalidate(self, pred) -> int:
+        """Drop every entry whose key satisfies ``pred``; returns the count
+        (the general sweep: version invalidation uses ``invalidate_except``)."""
+        doomed = [k for k in self._d if pred(k)]
+        for k in doomed:
+            self._remove(k)
+        return len(doomed)
+
+    def invalidate_except(self, prefix: str) -> int:
+        """Drop every entry whose key prefix differs from ``prefix``;
+        returns the count.  One dict pop per doomed bucket."""
+        prefix = str(prefix)
+        n = 0
+        for p in [p for p in self._buckets if p != prefix]:
+            keys = self._buckets.pop(p)
+            n += len(keys)
+            for k in keys:
+                del self._d[k]
+        return n
 
     def __len__(self) -> int:
         return len(self._d)
-
-
 
 
 # ------------------------------------------------------------- query journal
@@ -434,9 +476,9 @@ class QueryJournal:
                (in-flight state via ``slot_suspend``; the newest snapshot
                per qid wins on replay)
       mutation {version, parent_hash, content_hash, adds, add_w, dels}
-               (a graph delta; written by the JAX package's mutable
-               engines, encoded here so the format is whole — the port's
-               engine replays none until ROADMAP.md §1, *Mutable graphs*)
+               (a graph delta, written by ``QuegelEngine.apply_delta``
+               after the snapshots that pin the pre-mutation version;
+               recovery replays it through ``apply_delta_record``)
 
     ``fsync=True`` (default) makes every append durable before the runtime
     proceeds — the crash-safety contract.

@@ -329,12 +329,13 @@ def save_engine_store(store: Store, graph, *, index=None, aux_graphs=None,
     ``QuegelEngine.export_tables()``; ``PackedBlocks`` for ``cuda``).
     Entries are bound to the graph by its content hash so a restored index
     is never applied to a different graph.  Returns {entry name: meta}."""
+    # version + parent hash make the stored snapshot a point on the
+    # mutation chain: recovery boots from it and replays the journal's
+    # mutation records, which verify parentage against this
     meta = {
         "graph_hash": graph.content_hash(),
-        # the port's graphs are immutable: the first point of the JAX
-        # package's mutation chain
-        "graph_version": 0,
-        "parent_hash": None,
+        "graph_version": int(graph.version),
+        "parent_hash": graph.parent_hash,
     }
     written = {}
     store.put("graph", graph, shards=shards, shard_dim=graph.n, meta=meta)

@@ -118,12 +118,12 @@ def propagate_blocks_plain(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
         mb = torch.zeros((q, vp), dtype=torch.bool, device=x.device)
         mb[:, :v] = mask
         xb = torch.where(mb, xb, add_id)
-    k, r, c = pb.decode()
     i = torch.repeat_interleave(torch.arange(nb, device=x.device),
                                 pb.row_ptr.diff().long())
+    k, r, c = pb.decode(i.numel())  # entries past row_ptr[-1] are padding
     slot = i * pb.max_bpr + k
     src = pb.src_ids.reshape(-1)[slot].long() * b + r
-    msgs = ref.apply_mul(sr, xb[:, src], pb.w)
+    msgs = ref.apply_mul(sr, xb[:, src], None if pb.w is None else pb.w[:i.numel()])
     if active is not None:
         msgs = torch.where(active.reshape(-1)[slot], msgs, add_id)
     return sr.segment_combine(msgs, i * b + c, vp)[:, :v]
@@ -223,6 +223,12 @@ def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
 
 
 propagate_blocks.shapes = collections.Counter()
+
+
+def work_chunk() -> int:
+    """The entries per work item the built kernel takes (builds and loads
+    it)."""
+    return load().repro_chunk()
 
 
 def launches() -> int:

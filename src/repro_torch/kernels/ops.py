@@ -8,7 +8,10 @@ one operation:
 The engine holds one backend per named view and never branches on how
 messages move.  Plans in this port:
 
-  * ``coo``        — ``scatter_reduce`` over the destination-sorted COO view,
+  * ``coo``        — ``scatter_reduce`` over the destination-sorted COO view;
+                     with ``gather_edges`` set it reduces over chunks of the
+                     ACTIVE edge subset when a frontier is given,
+  * ``coo_gated``  — the same with the active-edge gather always on,
   * ``blocks_ref`` — the plain tile loop over block-sparse dense tiles,
   * ``cuda``       — the hand-written Hopper kernel (``frontier.py``) over
                      the packed layout of the same tiles (only the entries
@@ -20,22 +23,30 @@ path.  A per-(dst block, slot) activity bitmap — the frontier reduced over
 every lane, looked up per source block — lets the kernel skip dead tiles,
 and the per-lane mask is applied inside visited tiles only.  ``gate=False``
 restores the dense pre-mask as the baseline.
+
+Mutation: ``refresh(graph, delta)`` returns a new backend serving the
+mutated graph (tile tables spliced row by row, the receiver untouched, so
+older editions keep serving); ``as_args``/``from_args`` carry a plan's
+arrays padded to fixed shapes; ``warm()`` does a plan's first-use work
+(tables' device copies, the kernel's work items, int64 COO indices).
 """
 from __future__ import annotations
 
+import copy
+import threading
 from typing import Optional, Union
 
-import numpy as np
 import torch
 
-from repro_torch.core.graph import BlockSparse, Graph, PackedBlocks, pack_blocks
+from repro_torch.core.graph import (BlockSparse, Graph, PackedBlocks, pack_blocks,
+                                    pad_block_slots, pad_packed_slots)
 from repro_torch.core.semiring import BY_NAME, Semiring
 from repro_torch.kernels import frontier, ref
 
 
 # Backends of the JAX package that later slices port, with the title of the
 # ROADMAP.md §1 queue item that carries each.
-_NOT_PORTED = {"coo_gated": "Gated COO", "sharded": "Mesh mode"}
+_NOT_PORTED = {"sharded": "Mesh mode"}
 
 
 def block_activity(bs: Union[BlockSparse, PackedBlocks],
@@ -72,33 +83,84 @@ class PropagateBackend:
         plan's layout), else None."""
         return None
 
-    def refresh(self, graph: Graph, delta=None):
-        raise NotImplementedError(
-            "graph mutation is not ported yet: ROADMAP.md §1, *Mutable graphs*")
+    def refresh(self, graph: Graph, delta=None) -> "PropagateBackend":
+        """A new backend of the same plan serving ``graph``.
 
-    def as_args(self, graph_carrier=None, *, slot_cap=None):
-        raise NotImplementedError(
-            "argument-carried editions are not ported yet: ROADMAP.md §1, *Mutable graphs*")
+        ``delta`` is the ``EdgeDelta`` that produced ``graph`` from this
+        backend's graph; plans with prepared tables splice them on the
+        delta's touched rows rather than rebuild.  The receiver is left
+        untouched: older editions keep serving in-flight slots."""
+        raise NotImplementedError(f"backend '{self.name}' does not support graph mutation")
 
-    def from_args(self, args):
-        raise NotImplementedError(
-            "argument-carried editions are not ported yet: ROADMAP.md §1, *Mutable graphs*")
+    def as_args(self, graph_carrier: Optional[Graph] = None, *,
+                slot_cap: Optional[int] = None, entry_cap: Optional[int] = None):
+        """This plan's prepared arrays padded to fixed shapes, for an
+        argument-carried edition: ``graph_carrier`` is the engine's
+        capacity-padded, lineage-stripped graph, ``slot_cap`` and
+        ``entry_cap`` pad the tile tables' slot grid and packed entries.
+        Plans whose arrays cannot be carried (user callables) refuse."""
+        raise NotImplementedError(f"backend '{self.name}' cannot be argument-carried")
+
+    def from_args(self, args) -> "PropagateBackend":
+        """This plan rebound to the arrays of :meth:`as_args`; builds no
+        table."""
+        raise NotImplementedError(f"backend '{self.name}' cannot be argument-carried")
+
+    def warm(self) -> None:
+        """Do the plan's first-use work now (device copies, index arrays),
+        so the first propagate after a mutation does none of it."""
+
+    def arrays(self) -> list:
+        """Every tensor the plan propagates over (its shapes say whether two
+        editions are shape-identical)."""
+        return []
 
 
 class CooBackend(PropagateBackend):
     """``scatter_reduce`` over the destination-sorted COO view; the int64
-    edge indices ``scatter_reduce`` needs are prepared once."""
+    edge indices ``scatter_reduce`` needs are prepared once, at first use
+    or by :meth:`warm`.
+
+    With ``gather_edges`` set and a frontier given, reduces over chunks of
+    that many ACTIVE edges through the graph's CSR view instead
+    (``ref.propagate_coo_gated``: one extra device->host sync per call).
+    """
 
     name = "coo"
 
-    def __init__(self, graph: Graph):
+    def __init__(self, graph: Graph, *, gather_edges: Optional[int] = None,
+                 gate: bool = True):
         self.graph = graph
-        self._src = graph.src.long()
-        self._dst = graph.dst.long()
+        self.gather_edges = gather_edges
+        self.gate = bool(gate)
+        self._idx = None
+
+    def warm(self):
+        if self._idx is None:
+            self._idx = ref.coo_indices(self.graph)
 
     def propagate(self, sr, x, frontier=None):
         g = self.graph
-        return ref._coo(sr, x, frontier, self._src, self._dst, g.w, g.n)
+        if self.gate and self.gather_edges and frontier is not None:
+            return ref.propagate_coo_gated(g, sr, x, frontier, int(self.gather_edges))
+        self.warm()
+        return ref._coo(sr, x, frontier, *self._idx, g.n)
+
+    def refresh(self, graph, delta=None):
+        # no prepared state beyond the graph views, which Graph.apply_delta
+        # already merged
+        return CooBackend(graph, gather_edges=self.gather_edges, gate=self.gate)
+
+    def as_args(self, graph_carrier=None, *, slot_cap=None, entry_cap=None):
+        return {"graph": self.graph.carrier() if graph_carrier is None else graph_carrier}
+
+    def from_args(self, args):
+        return CooBackend(args["graph"], gather_edges=self.gather_edges, gate=self.gate)
+
+    def arrays(self):
+        g = self.graph
+        return [g.src, g.dst, g.w] + (
+            [g.csr_src, g.csr_dst, g.csr_w] if self.gather_edges else [])
 
 
 class _TileBackend(PropagateBackend):
@@ -119,6 +181,7 @@ class _TileBackend(PropagateBackend):
         self.gate = bool(gate)
         self.strict = bool(strict)
         self._shared = None
+        self._lock = threading.Lock()
         self.tables: dict = {}
         if isinstance(tables, dict):
             self.tables = {name: self._adopt(t, BY_NAME[name])
@@ -129,27 +192,84 @@ class _TileBackend(PropagateBackend):
     def _adopt(self, table, sr: Semiring):
         raise NotImplementedError
 
-    def _build(self, sr: Semiring):
+    def _build(self, sr: Semiring, graph: Graph):
         raise NotImplementedError
 
     def table_for(self, sr: Semiring):
-        t = self.tables.get(sr.name)
-        if t is None:
-            if self._shared is not None:
-                t = self._adopt(self._shared, sr)
-            elif self.strict:
-                raise ValueError(
-                    f"no block-sparse table for semiring '{sr.name}': build one "
-                    "per semiring with Graph.to_blocks(block, sr.add_id) (or "
-                    "Graph.to_packed_blocks for 'cuda')"
-                )
-            else:
-                t = self._build(sr)
+        """The table for ``sr`` on the graph's device: built (unless
+        ``strict``) or adopted at first use, and moved to the device at
+        first use when a splice left it on the host.  Locked, so a
+        background warm-up and a round never both do the work."""
+        with self._lock:
+            t = self.tables.get(sr.name)
+            if t is None:
+                if self._shared is not None:
+                    t = self._adopt(self._shared, sr)
+                elif self.strict:
+                    raise ValueError(
+                        f"no block-sparse table for semiring '{sr.name}': build one "
+                        "per semiring with Graph.to_blocks(block, sr.add_id) (or "
+                        "Graph.to_packed_blocks for 'cuda')"
+                    )
+                else:
+                    t = self._build(sr, self.graph)
+            t = t.to(self.graph.device)
             self.tables[sr.name] = t
-        return t
+            return t
 
     def export_tables(self):
         return dict(self.tables) or self._shared
+
+    def _copy(self, graph: Graph, tables: dict, strict: bool) -> "_TileBackend":
+        new = copy.copy(self)
+        new.graph, new.tables, new.strict = graph, tables, strict
+        new._shared, new._lock = None, threading.Lock()
+        return new
+
+    def _splice(self, graph: Graph, table, sr: Semiring, touched):
+        raise NotImplementedError
+
+    def refresh(self, graph, delta=None):
+        """Carry every table to ``graph``: spliced on the delta's touched
+        destination-block rows (``Graph.update_blocks`` /
+        ``update_packed_blocks``), or rebuilt in full without a delta.  A
+        one-table backend refuses: its add-identity is unknown."""
+        if self._shared is not None:
+            raise ValueError(
+                "cannot refresh a shared single-table tile backend: the "
+                "table's semiring (add_id) is unknown; construct with a "
+                "{sr.name: table} dict instead")
+        tables = {}
+        for name, t in self.tables.items():
+            sr = BY_NAME[name]
+            tables[name] = (self._splice(graph, t, sr, delta.touched_dst_blocks(t.block))
+                            if delta is not None else self._build(sr, graph))
+        return self._copy(graph, tables, self.strict)
+
+    def as_args(self, graph_carrier=None, *, slot_cap=None, entry_cap=None):
+        if self._shared is not None:
+            raise NotImplementedError(
+                "cannot argument-carry a shared single-table tile backend: the "
+                "table's semiring (add_id) is unknown, so the slot padding fill "
+                "would be a guess")
+        return {"tables": {name: self._pad(self.table_for(BY_NAME[name]),
+                                           BY_NAME[name], slot_cap, entry_cap)
+                           for name in list(self.tables)}}
+
+    def _pad(self, table, sr, slot_cap, entry_cap):
+        raise NotImplementedError
+
+    def from_args(self, args):
+        # a table missing from the carrier must fail loudly, never be built
+        # from a graph this copy does not propagate over
+        return self._copy(self.graph, dict(args["tables"]), True)
+
+    def warm(self):
+        for name in list(self.tables):
+            self.table_for(BY_NAME[name])
+
+    def arrays(self):
+        return [a for t in self.tables.values() for a in _table_arrays(t)]
 
     def propagate(self, sr, x, frontier=None):
         bs = self.table_for(sr)
@@ -184,8 +304,14 @@ class BlocksRefBackend(_TileBackend):
                             f"got {type(table).__name__}")
         return table
 
-    def _build(self, sr):
-        return self.graph.to_blocks(self.block, sr.add_id)
+    def _build(self, sr, graph):
+        return graph.to_blocks(self.block, sr.add_id)
+
+    def _splice(self, graph, table, sr, touched):
+        return graph.update_blocks(table, sr.add_id, touched)
+
+    def _pad(self, table, sr, slot_cap, entry_cap):
+        return pad_block_slots(table, int(slot_cap), sr.add_id) if slot_cap else table
 
     def _run(self, bs, sr, flat, mflat, active):
         return ref.propagate_blocks_ref(bs, sr, flat, mask=mflat, active=active)
@@ -218,11 +344,34 @@ class CudaBackend(_TileBackend):
                             f"tables, got {type(table).__name__}")
         return pack_blocks(table, sr)
 
-    def _build(self, sr):
-        return self.graph.to_packed_blocks(self.block, sr)
+    def _build(self, sr, graph):
+        return graph.to_packed_blocks(self.block, sr)
+
+    def _splice(self, graph, table, sr, touched):
+        # on the host mirrors; the device copy is first-use work (warm)
+        return graph.update_packed_blocks(table, sr, touched, device="cpu")
+
+    def _pad(self, table, sr, slot_cap, entry_cap):
+        if not (slot_cap or entry_cap):
+            return table
+        return pad_packed_slots(table, int(slot_cap or table.max_bpr),
+                                int(entry_cap or table.entries.numel()))
+
+    def warm(self):
+        super().warm()
+        if self.graph.device.type == "cuda":
+            chunk = frontier.work_chunk()
+            for t in list(self.tables.values()):
+                t.work_items(chunk)
 
     def _run(self, bs, sr, flat, mflat, active):
         return frontier.propagate_blocks(bs, sr, flat, mask=mflat, active=active)
+
+
+def _table_arrays(t) -> list:
+    if isinstance(t, PackedBlocks):
+        return [a for a in (t.src_ids, t.nslots, t.row_ptr, t.entries, t.w) if a is not None]
+    return [t.src_ids, t.tiles, t.nslots]
 
 
 class CallableBackend(PropagateBackend):
@@ -244,17 +393,21 @@ def make_backend(
     blocks: Optional[Union[BlockSparse, dict]] = None,
     block: int = 128,
     gate: bool = True,
+    gather_edges: Optional[int] = None,
     strict_tables: bool = False,
 ) -> PropagateBackend:
     """Resolve a backend spec to a ``PropagateBackend`` owning ``graph``.
 
     ``strict_tables`` forbids the tile plans from building missing tables
-    (the functional path's honesty rule).
+    (the functional path's honesty rule).  ``gather_edges`` is the gated
+    COO chunk (``coo``; ``coo_gated`` defaults it to 512).
     """
     if isinstance(spec, PropagateBackend):
         return spec
     if spec == "coo":
-        return CooBackend(graph)
+        return CooBackend(graph, gather_edges=gather_edges, gate=gate)
+    if spec == "coo_gated":
+        return CooBackend(graph, gather_edges=int(gather_edges or 512), gate=True)
     if spec == "pallas":
         raise ValueError(
             "backend 'pallas' is the JAX package's TPU kernel; the port's "
@@ -285,12 +438,15 @@ def propagate(
     blocks: Optional[Union[BlockSparse, dict]] = None,
     backend: Union[str, PropagateBackend] = "coo",
     gate: bool = True,
+    gather_edges: Optional[int] = None,
 ) -> torch.Tensor:
     """One superstep of combined message propagation. x: (..., V).
 
     Functional convenience over :func:`make_backend`; tile plans refuse
-    rather than build a table the caller did not pass.
+    rather than build a table the caller did not pass.  ``gather_edges``
+    (coo) reduces over chunks of the active-edge subset when a frontier
+    is given.
     """
     be = make_backend(backend, graph, blocks=blocks, gate=gate,
-                      strict_tables=True)
+                      gather_edges=gather_edges, strict_tables=True)
     return be.propagate(sr, x, frontier_mask)

@@ -2,7 +2,9 @@
 
 ``propagate_coo`` is the reference semantics of one Pregel superstep with a
 combiner: edge-parallel message generation, then a ``scatter_reduce`` keyed
-by destination.  ``propagate_blocks_ref`` is the same function on the
+by destination.  ``propagate_coo_gated`` reduces over the active
+out-edges only (the frontier's, through the CSR view), in fixed-size
+chunks.  ``propagate_blocks_ref`` is the same function on the
 block-sparse layout, the plain tile loop the CUDA kernel in
 ``frontier.py`` must match: bit-exactly on integer semirings and to float
 tolerance on float ones.
@@ -43,16 +45,64 @@ def _coo(sr: Semiring, x, frontier, src, dst, w, n):
     return sr.segment_combine(msgs, dst, n).reshape(x.shape)
 
 
+def coo_indices(graph: Graph):
+    """The ``(src, dst, w)`` that ``_coo`` reads, indices in int64: the
+    logical prefix only, so capacity padding (the tail of a
+    ``Graph.with_capacity`` graph) is never gathered or scattered."""
+    ne = graph.num_edges
+    return graph.src[:ne].long(), graph.dst[:ne].long(), graph.w[:ne]
+
+
 def propagate_coo(graph: Graph, sr: Semiring, x: torch.Tensor,
                   frontier=None) -> torch.Tensor:
     """One superstep: x (..., V) -> combined incoming messages (..., V).
 
     ``frontier`` (..., V) bool masks which sources emit; a masked source
     contributes the add-identity.  Leading axes are lanes (C slots): they
-    are flattened and reduced in one ``scatter_reduce``.
+    are flattened and reduced in one ``scatter_reduce``.  Capacity padding
+    (``Graph.with_capacity``) is inert.
     """
-    return _coo(sr, x, frontier, graph.src.long(), graph.dst.long(),
-                graph.w, graph.n)
+    return _coo(sr, x, frontier, *coo_indices(graph), graph.n)
+
+
+def propagate_coo_gated(graph: Graph, sr: Semiring, x: torch.Tensor, frontier,
+                        chunk: int) -> torch.Tensor:
+    """Frontier-gated superstep: reduce over the ACTIVE out-edges only.
+
+    The edges whose source is active in any lane (through the CSR view)
+    are compacted once (``nonzero``, the one device->host sync of this
+    call: the JAX package runs a ``while_loop`` whose trip count the
+    device decides), then consumed in ``chunk``-sized gathers, each
+    reduced by ``scatter_reduce`` into the accumulator; the tail of the
+    last chunk points at a dummy segment ``n`` that is sliced off.  Exact
+    for any frontier size; reduction work follows the frontier, not E.
+    Lanes share one edge subset and each lane is masked to the
+    add-identity outside its own frontier, as in :func:`propagate_coo`.
+    """
+    if graph.csr_row is None:
+        raise ValueError("graph has no CSR view; rebuild via Graph.from_edges")
+    n, add_id = graph.n, sr.identity(x.dtype)
+    frontier = torch.broadcast_to(frontier, x.shape)
+    xf = x.reshape(-1, n)
+    ff = frontier.reshape(-1, n)
+    xm = torch.where(ff, xf, add_id)
+    live = torch.zeros(n + 1, dtype=torch.bool, device=x.device)
+    live[:n] = ff.any(0)  # capacity padding's source n is never live
+    ids = live[graph.csr_src.long()].nonzero().squeeze(1)
+    total = ids.numel()
+    if total % chunk:
+        ids = torch.cat([ids, ids.new_full((chunk - total % chunk,), -1)])
+    acc = torch.full((xm.shape[0], n + 1), add_id, dtype=x.dtype, device=x.device)
+    for lo in range(0, ids.numel(), chunk):
+        eid = ids[lo:lo + chunk]
+        valid = eid >= 0
+        eid = eid.clamp(min=0)
+        s = graph.csr_src[eid].long().clamp(max=n - 1)
+        d = torch.where(valid, graph.csr_dst[eid].long(), n)
+        msgs = apply_mul(sr, xm[:, s], graph.csr_w[eid])
+        acc.scatter_reduce_(1, d.expand(msgs.shape), msgs, reduce=sr.reduce,
+                            include_self=True)
+    return acc[:, :n].reshape(x.shape)
 
 
 def _tile_part(sr: Semiring, xs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

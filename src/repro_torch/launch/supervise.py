@@ -86,13 +86,21 @@ def recover(runtime, journal_path: str) -> dict:
     submits only workload items the journal has never seen."""
     state = fold_journal(QueryJournal.replay(journal_path))
     submits, done, snaps = state["submits"], state["done"], state["snaps"]
-    if state["mutations"]:
-        # the port's graphs are immutable until ROADMAP.md §1, *Mutable graphs*
-        raise NotImplementedError(
-            f"journal holds {len(state['mutations'])} graph mutation record(s): "
-            "replaying them is not ported yet: ROADMAP.md §1, *Mutable graphs*")
     for qid, r in sorted(done.items()):
         runtime.restore_retired(qid, r["status"], r["result"], r["steps"])
+    # Replay graph mutations BEFORE re-queueing in-flight queries: snapshot
+    # payloads pin pre-mutation versions, so every edition of the chain
+    # must exist when restore_pending re-registers them (apply_delta_record
+    # keeps them, prune=False; the engine prunes at its next delta).  The
+    # engine checks the parent/content hash chain of every record.
+    if state["mutations"]:
+        prog = runtime.program
+        if not hasattr(prog, "apply_delta_record"):
+            raise RuntimeError(
+                "journal contains graph mutations but the booted program "
+                f"({type(prog).__name__}) cannot replay them")
+        for m in state["mutations"]:
+            prog.apply_delta_record(m)
     pending = sorted((r for qid, r in submits.items() if qid not in done),
                      key=lambda r: r["seq"])
     resumed = 0
@@ -114,7 +122,7 @@ def recover(runtime, journal_path: str) -> dict:
         "replayed_done": len(done),
         "resumed_from_snapshot": resumed,
         "resubmitted": len(pending) - resumed,
-        "mutations_replayed": 0,
+        "mutations_replayed": len(state["mutations"]),
         "known_qids": set(submits),
     }
 

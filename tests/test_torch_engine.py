@@ -152,13 +152,30 @@ def test_pump_poll_and_interactive_match_jax():
     assert int(one["dist"]) == int(jeng.query(pairs[0])["dist"])
 
 
-@pytest.mark.parametrize("option", [
-    "legacy", "mesh", "arg_carried", "warmup", "index_fn", "gather_edges"])
+@pytest.mark.parametrize("option", ["legacy", "mesh"])
 def test_unported_options_raise(option):
     g = port_graph(_graph())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QuegelEngine(g, ppsp.BFSProgram(), 2, example_query=np.zeros(2, np.int32),
                      device="cpu", **{option: True})
+
+
+@pytest.mark.parametrize("option,value", [
+    ("arg_carried", True), ("warmup", True), ("edge_capacity", 4096),
+    ("gather_edges", 16), ("index_fn", lambda g, idx, d: (idx, None))])
+def test_mutation_options_construct_and_answer_as_jax(option, value):
+    """The mutation and gated-COO options the port took over construct an
+    engine that answers as the JAX engine does."""
+    g = port_graph(_graph())
+    pairs = _pairs(6, seed=31)
+    eng = ppsp.make_bibfs_engine(g, capacity=3, device="cpu", **{option: value})
+    jeng = jppsp.make_bibfs_engine(_graph(), capacity=3)
+    for p in pairs:
+        eng.submit(p)
+        jeng.submit(p)
+    assert_same_results(eng.run_until_drained(), {
+        q: {k: np.asarray(v) for k, v in r.items()}
+        for q, r in jeng.run_until_drained().items()})
 
 
 def _roadmap_queue() -> str:
@@ -179,7 +196,7 @@ def test_not_ported_messages_name_roadmap_titles():
         assert not re.search(r"§1 items? \d", text), path
         for ref_ in re.findall(r"ROADMAP\.md §1,([^)\"]*)", text):
             titles |= {t for t in re.findall(r"\*([^*]+)\*", ref_) if "{" not in t}
-    assert len(titles) >= 4, titles
+    assert titles == {"Legacy A/B baseline", "Mesh mode"}, titles
     for title in titles:
         assert f"**{title}**" in queue, title
     with pytest.raises(NotImplementedError, match=r"\*Legacy A/B baseline\*"):

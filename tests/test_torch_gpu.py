@@ -167,3 +167,51 @@ def test_app_cuda_plan_matches_coo(cuda, app):
     for qid, r in results["coo"].items():
         for k, v in r.items():
             np.testing.assert_array_equal(results["cuda"][qid][k], v, err_msg=f"{qid} {k}")
+
+
+@pytest.mark.parametrize("sr_name,dtype", [("min_right", torch.int32),
+                                           ("min_plus", torch.float32)])
+def test_splice_on_the_card_matches_a_fresh_table(cuda, sr_name, dtype):
+    """A packed table spliced after each delta equals to_packed_blocks of
+    the mutated graph, and the kernel on the spliced (and slot/entry
+    padded) table equals its plain version and coo."""
+    from repro_torch.core.graph import pad_packed_slots
+
+    sr = BY_NAME[sr_name]
+    rng = np.random.default_rng(11)
+    g = _graph(dtype, sr.add_id, "hubs", rng, cuda)
+    pb = g.to_packed_blocks(128, sr)
+    for _ in range(3):
+        s, d, w = g._edges_np()
+        adds = [(int(a), int(b)) for a, b in rng.integers(0, g.n_real, (64, 2)) if a != b]
+        dels = list({(int(s[i]), int(d[i])) for i in rng.choice(len(s), 64, replace=False)})
+        delta = g.make_delta(adds, dels, w=np.ones(len(adds), w.dtype))
+        g = g.apply_delta(delta)
+        pb = g.update_packed_blocks(pb, sr, delta.touched_dst_blocks(128))
+        fresh = g.to_packed_blocks(128, sr)
+        for f in ("src_ids", "nslots", "row_ptr", "entries", "w"):
+            a, b = getattr(pb, f), getattr(fresh, f)
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f
+        x = torch.from_numpy(rng.integers(0, 20, (8, g.n)).astype(np.int32)).to(cuda, dtype)
+        m = torch.from_numpy(rng.random((8, g.n)) < 0.3).to(cuda)
+        padded = pad_packed_slots(pb, pb.max_bpr + 2, pb.entries.numel() + 999)
+        for t in (pb, padded):
+            act = ops.block_activity(t, m)
+            got = frontier.propagate_blocks(t, sr, x, m, act)
+            assert torch.equal(got, frontier.propagate_blocks_plain(t, sr, x, m, act))
+            assert torch.equal(got, ops.CooBackend(g).propagate(sr, x, m))
+
+
+def test_gated_coo_on_the_card(cuda):
+    """The gated COO gather on the card equals plain COO and the kernel,
+    for chunks smaller and larger than the active edge set."""
+    g = barabasi_albert(4096, 3, seed=5, device=cuda)
+    sr = BY_NAME["min_right"]
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(0, 20, (8, g.n)).astype(np.int32)).to(cuda)
+    m = torch.from_numpy(rng.random((8, g.n)) < 0.05).to(cuda)
+    want = ops.CooBackend(g).propagate(sr, x, m)
+    for chunk in (64, 1 << 20):
+        assert torch.equal(ops.CooBackend(g, gather_edges=chunk).propagate(sr, x, m), want)
+    kern = ops.make_backend("cuda", g, block=128)
+    assert torch.equal(kern.propagate(sr, x, m), want)

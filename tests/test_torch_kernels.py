@@ -147,7 +147,8 @@ def test_make_backend_refusals():
     with pytest.raises(ValueError, match="'cuda'"):
         ops.make_backend("pallas", tg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.make_backend("coo_gated", tg)
+        ops.make_backend("sharded", tg)
+    assert ops.make_backend("coo_gated", tg).gather_edges == 512
     with pytest.raises(ValueError, match="blocks="):
         ops.propagate(tg, BY_NAME["min_right"], torch.zeros((1, tg.n), dtype=torch.int32),
                       backend="cuda")
@@ -195,3 +196,64 @@ def test_cuda_plan_never_builds_a_dense_table(monkeypatch):
     tables = [t for view in eng.export_tables().values() for t in view.values()]
     assert tables and all(isinstance(t, PackedBlocks) for t in tables)
     assert eng.table_bytes() == sum(t.nbytes for t in tables)
+
+
+# ------------------------------------------------------------ gated COO
+def _gated_case(sr_name, seed=5, n=70, q=4, frontier_p=0.15):
+    """The JAX tests' masked case: a graph, x and a sparse frontier."""
+    rng = np.random.default_rng(seed)
+    jg = _graph(sr_name, n, seed, rng)
+    x = rand_x(rng, sr_name, jg.n, q)
+    mask = rng.random((q, jg.n)) < frontier_p
+    return jg, x, mask
+
+
+@pytest.mark.parametrize("sr_name", SEMIRINGS)
+@pytest.mark.parametrize("chunk", [7, 64, 4096])
+def test_coo_gather_matches_jax(sr_name, chunk):
+    """The gated COO gather (chunked active-edge reduction) equals the JAX
+    package's gated gather and plain COO for any chunk: smaller than the
+    active set (many chunks) and larger than E."""
+    jg, x, mask = _gated_case(sr_name)
+    jsr, sr = J_BY_NAME[sr_name], BY_NAME[sr_name]
+    want = jops.propagate(jg, jsr, jnp.asarray(x), jnp.asarray(mask), gather_edges=chunk)
+    tg, tx, tm = port_graph(jg), torch.from_numpy(x), torch.from_numpy(mask)
+    got = ops.propagate(tg, sr, tx, tm, gather_edges=chunk)
+    floating = x.dtype == np.float32
+    assert_same(got.numpy(), want, floating)
+    assert_same(got.numpy(), jref.propagate_coo(jg, jsr, jnp.asarray(x), jnp.asarray(mask)),
+                floating)
+    # the same on the capacity-padded graph (inert padding)
+    padded = ops.propagate(tg.with_capacity(tg.num_edges + 33), sr, tx, tm,
+                           gather_edges=chunk)
+    assert_same(padded.numpy(), got.numpy(), floating)
+
+
+def test_coo_gather_empty_and_full_frontier():
+    jg, x, _ = _gated_case("min_right", seed=9)
+    tg = port_graph(jg)
+    for mask in (np.zeros(x.shape, bool), np.ones(x.shape, bool)):
+        want = jref.propagate_coo(jg, J_BY_NAME["min_right"], jnp.asarray(x),
+                                  jnp.asarray(mask))
+        got = ops.propagate(tg, BY_NAME["min_right"], torch.from_numpy(x),
+                            torch.from_numpy(mask), gather_edges=32)
+        assert_same(got.numpy(), want, False)
+
+
+def test_coo_gather_syncs_once_and_refuses_without_csr(monkeypatch):
+    """One compaction (one nonzero) per gated propagate; a graph without
+    the CSR view is refused."""
+    jg, x, mask = _gated_case("min_right")
+    tg = port_graph(jg)
+    calls = []
+    orig = torch.Tensor.nonzero
+    monkeypatch.setattr(torch.Tensor, "nonzero",
+                        lambda self, *a, **k: calls.append(1) or orig(self, *a, **k))
+    ref.propagate_coo_gated(tg, BY_NAME["min_right"], torch.from_numpy(x),
+                            torch.from_numpy(mask), 7)
+    assert len(calls) == 1
+    import dataclasses
+    bare = dataclasses.replace(tg, csr_row=None)
+    with pytest.raises(ValueError, match="CSR"):
+        ref.propagate_coo_gated(bare, BY_NAME["min_right"], torch.from_numpy(x),
+                                torch.from_numpy(mask), 7)

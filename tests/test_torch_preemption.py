@@ -186,9 +186,10 @@ def test_suspend_payload_is_a_host_copy_of_the_state_rows():
         t.zero_()
     for k, v in payload["state"].items():
         np.testing.assert_array_equal(v, row[k].numpy())
-    with pytest.raises(NotImplementedError, match=r"\*Mutable graphs\*"):
+    with pytest.raises(RuntimeError, match="no such edition"):
         eng.slot_register_resume({"v": 1, "state": payload["state"]})
     eng.slot_register_resume(payload)
+    assert eng._resume_refs == {0: 2}
 
 
 def test_suspended_query_keeps_budget_accounting():
