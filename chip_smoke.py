@@ -84,6 +84,28 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      run, and a store saved at version 2 keeping its lineage; (7d) the 256
      BiBFS pairs through the gated COO gather and through ungated COO,
      twice each, both equal to phase 3.
+  8. open-loop serving and the legacy round, reusing phase 3's graph, rev
+     view, pairs, tables and answers and 6a's store, C=8, after printing
+     the host tunings (launch/env.py): (8a) BFS with legacy=True against
+     the fused round, k=1, through cuda and coo, 3 interleaved reps of
+     each: median rounds/s and q/s and the fused/legacy ratio, answers
+     identical across modes and plans and equal to phase 3's distances;
+     (8b) BiBFS under Poisson arrivals (seed 2) at 0.5, 1, 2 and 4 queries
+     per tick on the virtual clock, through cuda and coo: ticks,
+     latencies, max_backlog and result maps identical; (8c) the
+     wall-clock sweep on cuda at 0.25-3 x phase 3's closed-loop BiBFS q/s
+     (q_max), 3 interleaved passes, each rate's median pass (by busy q/s:
+     queries over the seconds spent pumping) printed and read for the
+     knee: offered, achieved and busy q/s, p50/p99 latency split into
+     queue wait and service, max_backlog, the saturation knee, one MMPP
+     run (burst 4, dwell 32/rate) at 0.5 x q_max and the device busy share
+     at q_max; (8d) 12 BiBFS replicas (result_cache=16) booted from 6a's
+     store with one load_engine_store call, two per ReplicaPool, pumped
+     one after another on the one card: a Zipf(1.1) mix of 512 queries
+     over 64 of phase 3's pairs at 2 per tick on the virtual clock under
+     affine, rr and p2c (hit rate, balance, spills, p99 ticks; the merged
+     map equal to phase 3's single engine; affine hits above rr's), then
+     one wall-clock affine run at 0.5 x q_max.
 Every cuda path runs with the kernel's launch counts set to 0 just before
 it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
@@ -511,7 +533,7 @@ def run_main_path(g, pairs, backend: str) -> dict:
         eng.submit(p)
     take_counts()
     res, dt = sync_time(eng.run_until_drained)
-    out["bibfs"] = res
+    out["bibfs"], out["bibfs_qps"] = res, len(pairs) / dt
     # phase 6 reuses the uninterrupted answers, the rev view and the tables,
     # kept on the host so that later phases' peak memory does not hold them
     out["bibfs_map"] = _result_map(eng)
@@ -1062,6 +1084,15 @@ def counted(path: str, run, paths: list):
         fail(f"{path}: the cuda run never launched the kernel")
     paths.extend(path_rows(path, shapes))
     return out, n
+
+
+def no_launch(what: str, run):
+    """Run a coo path, failing if it launched the kernel."""
+    take_counts()
+    out = run()
+    if take_counts()[0]:
+        fail(f"{what}: the coo plan launched the kernel")
+    return out
 
 
 def drain(eng, queries, each_round=None):
@@ -1677,10 +1708,7 @@ def mut_gated(g, pairs, main) -> None:
     walls = {None: [], GATHER_EDGES: []}
     for ge in (None, GATHER_EDGES, GATHER_EDGES, None):
         eng = make_bibfs_engine(g, capacity=FT_C, backend="coo", gather_edges=ge)
-        take_counts()
-        _, wall = sync_time(lambda: drain(eng, pairs))
-        if take_counts()[0]:
-            fail("7d: the coo plan launched the kernel")
+        _, wall = no_launch("7d", lambda: sync_time(lambda: drain(eng, pairs)))
         if _result_map(eng) != main["bibfs_map"]:
             fail(f"7d: coo (gather_edges={ge}) answers, statuses or steps differ from "
                  "phase 3's")
@@ -1714,6 +1742,324 @@ def phase_mutation(g, pairs, main, tmp, store):
     return launches, paths
 
 
+# ------------------------------------------------------------ phase 8
+SERVE_C = 8                                    # the JAX A/B cell's C (benchmarks/run.py)
+AB_REPS = 3                                    # interleaved reps of each round per plan
+VCLOCK_RATES = (0.5, 1.0, 2.0, 4.0)            # Poisson arrivals per tick
+# of phase 3's closed-loop BiBFS q/s; 2 and 3 find the knee where the open
+# loop outruns the closed-loop drain (no tail of half-empty rounds)
+WALL_FRACTIONS = (0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0)
+WALL_REPS = 3          # passes of the wall-clock sweep: one pass is ~0.2 s a rate
+ZIPF_KEYS, ZIPF_QUERIES, ZIPF_S = 64, 512, 1.1
+REPLICAS, REPLICA_CACHE = 2, 16
+
+
+def merge_rows(rows: list) -> list:
+    """Path rows of repeated runs of a path, launches summed per key."""
+    total = collections.Counter()
+    for r in rows:
+        total[(r["path"], r["semiring"], r["dtype"], r["q"])] += r["launches"]
+    return [dict(path=p, semiring=sr, dtype=dt, q=q, launches=n)
+            for (p, sr, dt, q), n in total.items()]
+
+
+def same_as_main(results: dict, qids, main, picks=None, dist_only=False) -> bool:
+    """Each qid's answer equals phase 3's batch BiBFS answer of its pair
+    (the i-th qid asks pair ``picks[i]``, or pair i)."""
+    for i, q in enumerate(qids):
+        want = main["bibfs"][int(picks[i]) if picks is not None else i]
+        got = results[q]
+        keys = ("dist",) if dist_only else tuple(want)
+        if not all(np.array_equal(np.asarray(got[k]), np.asarray(want[k])) for k in keys):
+            return False
+    return True
+
+
+def ms_pct(xs, q) -> float:
+    return 1e3 * float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+class TimedPumps:
+    """A load-generator target that times each pump.  The load generator's
+    busy_qps counts completions per pump under either clock; under the
+    wall clock the seconds spent pumping give the delivered q/s."""
+
+    def __init__(self, target):
+        self.target, self.busy_s = target, 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.target, name)
+
+    def pump(self):
+        t0 = time.perf_counter()
+        out = self.target.pump()
+        self.busy_s += time.perf_counter() - t0
+        return out
+
+
+def serve_ab(g, pairs, main, tables, paths) -> None:
+    """8a: the legacy round against the fused one, BFS C=8 k=1, on cuda and
+    on coo, 3 interleaved reps of each."""
+    from repro_torch.apps.ppsp import make_bfs_engine
+    from repro_torch.core.engine import EngineStats
+
+    first = None
+    for plan in ("cuda", "coo"):
+        kw = dict(blocks=tables["default"]) if plan == "cuda" else {}
+        engines = {mode: make_bfs_engine(g, capacity=SERVE_C, backend=plan,
+                                         legacy=mode == "legacy", **kw)
+                   for mode in ("legacy", "fused")}
+        for eng in engines.values():  # first-use work off the clock
+            drain(eng, pairs[:10])
+        cells = {mode: [] for mode in engines}
+        for _ in range(AB_REPS):
+            for mode, eng in engines.items():
+                eng.runtime.stats = EngineStats()
+                qids = [eng.submit(p) for p in pairs]
+                run = lambda: sync_time(eng.run_until_drained)[1]
+                wall = (counted(f"serve_ab_{mode}", run, paths)[0] if plan == "cuda"
+                        else no_launch(f"8a {mode}", run))
+                got = {i: eng.runtime.results[q] for i, q in enumerate(qids)}
+                if not same_as_main(got, range(len(pairs)), main, dist_only=True):
+                    fail(f"8a: {plan} {mode} distances differ from phase 3's")
+                first = first or got
+                if not same_results(got, first):
+                    fail(f"8a: {plan} {mode} answers differ from cuda legacy's")
+                cells[mode].append((eng.stats.rounds / wall, len(pairs) / wall,
+                                    eng.stats.rounds, eng.stats.supersteps_total))
+        if {c[2:] for m in cells for c in cells[m]} != {cells["fused"][0][2:]}:
+            fail(f"8a: {plan} rounds or supersteps differ between the modes or reps")
+        if plan == "cuda":
+            for mode, eng in engines.items():
+                check_launches(f"serve_ab_{mode}", lambda: drain(eng, pairs),
+                               path_keys(paths, f"serve_ab_{mode}"))
+        med = {m: (statistics.median(c[0] for c in cs), statistics.median(c[1] for c in cs))
+               for m, cs in cells.items()}
+        print(f"  8a [{plan}] BFS C={SERVE_C} k=1, {len(pairs)} pairs, {AB_REPS} interleaved "
+              f"reps: legacy {med['legacy'][0]:.3f} rounds/s, {med['legacy'][1]:.3f} q/s; "
+              f"fused {med['fused'][0]:.3f} rounds/s, {med['fused'][1]:.3f} q/s; "
+              f"{cells['fused'][0][2]} rounds, {cells['fused'][0][3]} supersteps in both; "
+              f"fused/legacy {med['fused'][0] / med['legacy'][0]:.4f} (rounds/s), "
+              f"{med['fused'][1] / med['legacy'][1]:.4f} (q/s); per-rep q/s legacy "
+              f"{[round(c[1], 3) for c in cells['legacy']]}, fused "
+              f"{[round(c[1], 3) for c in cells['fused']]}; answers == cuda legacy, "
+              "distances == phase 3's", flush=True)
+        del engines
+        gc.collect()
+
+
+def serve_vclock(g, pairs, main, tables, rev, paths):
+    """8b: BiBFS C=8 under Poisson arrivals on the virtual clock, on cuda and
+    on coo: ticks, latencies, backlog and answers must be identical.
+    Returns the cuda engine (warm) for 8c."""
+    from repro_torch.apps.ppsp import make_bibfs_engine
+    from repro_torch.launch.loadgen import make_arrivals, run_open_loop
+    from repro_torch.launch.supervise import _result_map
+
+    runs, maps, walls, engines = {}, {}, {}, {}
+    for plan in ("cuda", "coo"):
+        eng = (bibfs_engine(g, rev, tables) if plan == "cuda"
+               else make_bibfs_engine(g, capacity=SERVE_C, backend="coo"))
+        engines[plan] = eng
+        t0 = time.perf_counter()
+        for r in VCLOCK_RATES:
+            arr = make_arrivals("poisson", r, len(pairs), seed=2)
+            go = lambda: run_open_loop(eng, list(pairs), arr, offered_qps=r)
+            runs[plan, r] = (counted("serve_vclock", go, paths)[0] if plan == "cuda"
+                             else no_launch("8b", go))
+            qids = sorted(runs[plan, r].statuses)
+            if not same_as_main(eng.runtime.results, qids, main):
+                fail(f"8b: {plan} answers at {r} per tick differ from phase 3's")
+        walls[plan] = time.perf_counter() - t0
+        maps[plan] = _result_map(eng)
+    if maps["cuda"] != maps["coo"]:
+        fail("8b: the result maps (answers, statuses, steps) differ between cuda and coo")
+    r = VCLOCK_RATES[-1]
+    check_launches("serve_vclock", lambda: run_open_loop(
+        engines["cuda"], list(pairs), make_arrivals("poisson", r, len(pairs), seed=2),
+        offered_qps=r), path_keys(paths, "serve_vclock"))
+    for r in VCLOCK_RATES:
+        a, b = runs["cuda", r], runs["coo", r]
+        if (a.latencies, a.ticks, a.max_backlog, a.statuses) != (
+                b.latencies, b.ticks, b.max_backlog, b.statuses):
+            fail(f"8b: the virtual clock differs between cuda and coo at {r} per tick")
+        s = a.summary()
+        print(f"  8b r={r}/tick Poisson(seed=2), {len(pairs)} BiBFS pairs, C={SERVE_C}: "
+              f"{a.ticks} ticks, latency p50 {s['lat_p50']} p99 {a.latency_percentile(99)} "
+              f"ticks, max_backlog {a.max_backlog}, busy {s['busy_qps']:.4f} q/tick, "
+              f"achieved {s['achieved_qps']:.4f} q/tick; ticks, latencies, backlog and "
+              "map identical on cuda and coo, answers == phase 3's", flush=True)
+    print(f"  8b wall of the 4 runs: cuda {walls['cuda']:.3f} s, coo {walls['coo']:.3f} s",
+          flush=True)
+    del engines["coo"]
+    return engines["cuda"]
+
+
+def wall_line(tag: str, res, busy_s: float, rate: float) -> str:
+    return (f"{tag}: offered {rate:.3f} q/s, achieved {res.achieved_qps:.3f} q/s, busy "
+            f"{res.n / busy_s:.3f} q/s ({busy_s:.4f} s pumping of {res.makespan:.4f} s), "
+            f"{res.ticks} pumps; latency p50 {ms_pct(res.latencies, 50):.3f} p99 "
+            f"{ms_pct(res.latencies, 99):.3f} ms; queue wait p50 "
+            f"{ms_pct(res.queue_waits, 50):.3f} p99 {ms_pct(res.queue_waits, 99):.3f} ms; "
+            f"service p50 {ms_pct(res.service_times, 50):.3f} p99 "
+            f"{ms_pct(res.service_times, 99):.3f} ms; max_backlog {res.max_backlog}")
+
+
+def serve_wall(eng, pairs, main, q_max, paths) -> None:
+    """8c: the wall-clock sweep on cuda at fractions of phase 3's closed-loop
+    q/s, WALL_REPS interleaved passes, each rate's median pass printed and
+    read for the knee; then one bursty (MMPP) run."""
+    from repro_torch.core.engine import EngineStats
+    from repro_torch.launch.loadgen import make_arrivals, run_open_loop, saturation_knee
+
+    def one(tag, arr, rate):
+        eng.runtime.stats = EngineStats()
+        tgt = TimedPumps(eng)
+        res = counted("serve_wall", lambda: run_open_loop(
+            tgt, list(pairs), arr, clock="wall", offered_qps=rate), paths)[0]
+        if not same_as_main(eng.runtime.results, sorted(res.statuses), main):
+            fail(f"8c: answers of the {tag} run differ from phase 3's")
+        return res, tgt.busy_s
+
+    arrivals = {f: make_arrivals("poisson", f * q_max, len(pairs), seed=2)
+                for f in WALL_FRACTIONS}
+    runs = {f: [] for f in WALL_FRACTIONS}
+    for _ in range(WALL_REPS):  # a pass over every rate, so drift hits each alike
+        for f in WALL_FRACTIONS:
+            res, busy_s = one(f"{f} x q_max", arrivals[f], f * q_max)
+            runs[f].append((res.n / busy_s, res, busy_s))
+    curve = {}
+    for f in WALL_FRACTIONS:
+        busy, res, busy_s = sorted(runs[f], key=lambda r: r[0])[len(runs[f]) // 2]
+        curve[f * q_max] = {"busy_qps": busy}
+        print(f"  8c {wall_line(f'{f} x q_max Poisson, median of {WALL_REPS}', res, busy_s, f * q_max)}"
+              f"; busy q/s of the passes {[r[0] for r in runs[f]]}; answers == phase 3's",
+              flush=True)
+    print(f"  8c knee (saturation_knee, tol 0.9, median busy q/s): "
+          f"{saturation_knee(curve, tol=0.9)!r} q/s; q_max (phase 3's closed-loop cuda "
+          f"batch BiBFS) {q_max!r} q/s", flush=True)
+    rate = 0.5 * q_max
+    res, busy_s = one("MMPP", make_arrivals("mmpp", rate, len(pairs), seed=2, burst=4.0,
+                                            dwell=32.0 / rate), rate)
+    print(f"  8c {wall_line('0.5 x q_max MMPP(burst=4, dwell=32/rate)', res, busy_s, rate)}; "
+          "answers == phase 3's", flush=True)
+    makespan = statistics.median(r[1].makespan for r in runs[1.0])
+    check_launches("serve_wall", lambda: run_open_loop(
+        eng, list(pairs), arrivals[1.0], clock="wall", offered_qps=q_max),
+        path_keys(paths, "serve_wall"))
+    device_breakdown(lambda: run_open_loop(eng, list(pairs), arrivals[1.0], clock="wall",
+                                           offered_qps=q_max), makespan,
+                     "8c [cuda] open loop at q_max")
+
+
+def serve_pool(g, pairs, main, store, q_max, paths) -> None:
+    """8d: two BiBFS replicas booted from 6a's store (one read), pumped one
+    after another on the one card, under a Zipf mix for each policy."""
+    from repro_torch.core import store as tstore
+    from repro_torch.launch.loadgen import make_arrivals, run_open_loop
+    from repro_torch.launch.router import POLICIES, ReplicaPool, boot_replicas_from_store
+
+    reads, orig = [0], tstore.load_engine_store
+
+    def counting(*a, **kw):
+        reads[0] += 1
+        return orig(*a, **kw)
+
+    # fresh replicas for each policy, the wall run and the kernel checks
+    n_reps = REPLICAS * (len(POLICIES) + 3)
+    tstore.load_engine_store = counting
+    try:
+        reps, boot_s = sync_time(lambda: boot_replicas_from_store(
+            store, lambda i, parts: bibfs_engine(
+                parts["graph"], parts["aux_graphs"]["rev"], parts["tables"],
+                result_cache=REPLICA_CACHE), n_reps, device="cuda"))
+    finally:
+        tstore.load_engine_store = orig
+    ptr = reps[0].graph.src.data_ptr()
+    if reads[0] != 1 or any(r.graph.content_hash() != g.content_hash() or r.graph.version != 0
+                            or r.graph.src.data_ptr() != ptr for r in reps):
+        fail(f"8d: {reads[0]} store reads, or a replica's graph is not phase 3's version 0 "
+             "or not the shared tensors")
+    print(f"  8d boot: {n_reps} BiBFS replicas (C={SERVE_C}, result_cache={REPLICA_CACHE}) "
+          f"from 6a's store in {boot_s:.3f} s, {reads[0]} load_engine_store call; every "
+          "graph phase 3's content_hash at version 0, one set of tensors", flush=True)
+
+    rng = np.random.default_rng(3)
+    p = 1.0 / np.arange(1, ZIPF_KEYS + 1) ** ZIPF_S
+    picks = rng.choice(ZIPF_KEYS, ZIPF_QUERIES, p=p / p.sum())
+    items = [pairs[k] for k in picks]
+    arr = make_arrivals("constant", 2.0, len(items))
+    pools = iter(reps[i:i + REPLICAS] for i in range(0, n_reps, REPLICAS))
+
+    def check(pool, what):
+        if sorted(pool.results) != list(range(len(items))) or any(
+                s != "DONE" for s in pool.status.values()):
+            fail(f"8d: {what}: not every query is DONE")
+        if not same_as_main(pool.results, range(len(items)), main, picks):
+            fail(f"8d: {what}: the merged map differs from a single engine's (phase 3's)")
+
+    hits = {}
+    for policy in POLICIES:
+        pool = ReplicaPool(next(pools), policy=policy)
+        res = counted("serve_pool", lambda: run_open_loop(pool, items, arr, offered_qps=2.0),
+                      paths)[0]
+        check(pool, policy)
+        s = pool.stats_summary()
+        hits[policy] = pool.cache_hits
+        print(f"  8d {policy}: {REPLICAS} replicas pumped one after another on the one card "
+              f"(no NCCL, no second card), Zipf({ZIPF_S}) over {ZIPF_KEYS} of phase 3's "
+              f"pairs, {len(items)} queries at 2 per tick: hit rate "
+              f"{pool.cache_hits / len(items):.4f} ({pool.cache_hits}), balance "
+              f"{s['balance']:.4f}, submits {s['submits']}, spills {s['spills']}, rounds "
+              f"{s['rounds']}, {res.ticks} ticks, latency p50 {res.latency_percentile(50)} "
+              f"p99 {res.latency_percentile(99)} ticks; merged map == a single engine's "
+              "(phase 3's)", flush=True)
+    if not hits["affine"] > hits["rr"]:
+        fail(f"8d: affine hits {hits['affine']} do not exceed rr hits {hits['rr']}")
+    checked = ReplicaPool(next(pools), policy="affine")
+    check_launches("serve_pool", lambda: run_open_loop(checked, items, arr, offered_qps=2.0),
+                   path_keys(paths, "serve_pool"))
+    check(checked, "the checked affine run")
+    pool, rate = ReplicaPool(next(pools), policy="affine"), 0.5 * q_max
+    tgt, warr = TimedPumps(pool), make_arrivals("poisson", rate, len(items), seed=4)
+    res = counted("serve_pool_wall", lambda: run_open_loop(
+        tgt, items, warr, clock="wall", offered_qps=rate), paths)[0]
+    check(pool, "the wall-clock affine run")
+    check_launches("serve_pool_wall", lambda: run_open_loop(
+        ReplicaPool(next(pools), policy="affine"), items, warr, clock="wall",
+        offered_qps=rate), path_keys(paths, "serve_pool_wall"))
+    print(f"  8d {wall_line('affine, wall clock, 0.5 x q_max Poisson', res, tgt.busy_s, rate)}"
+          f"; hit rate {pool.cache_hits / len(items):.4f}; {REPLICAS} replicas pumped one "
+          "after another on the one card; merged map == phase 3's", flush=True)
+
+
+def phase_serving(g, pairs, main, store):
+    """Phase 8: open-loop serving and the legacy round on the card, reusing
+    phase 3's graph, rev view, pairs, tables and answers and 6a's store.
+    Returns (launches, path rows)."""
+    from repro_torch.launch import env
+
+    t0 = time.perf_counter()
+    print(f"phase 8: host tunings {env.describe()}", flush=True)
+    tables, rev = tables_to(main["tables"], "cuda"), main["rev"].to("cuda")
+    q_max, paths, warm = main["bibfs_qps"], [], {}
+    parts = (("8a", lambda: serve_ab(g, pairs, main, tables, paths)),
+             ("8b", lambda: warm.update(eng=serve_vclock(g, pairs, main, tables, rev, paths))),
+             ("8c", lambda: serve_wall(warm.pop("eng"), pairs, main, q_max, paths)),
+             ("8d", lambda: serve_pool(g, pairs, main, store, q_max, paths)))
+    for name, part in parts:
+        t = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    paths = merge_rows(paths)
+    launches = sum(r["launches"] for r in paths)
+    print(f"phase 8: {launches} kernel launches in the cuda runs; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, paths
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1743,14 +2089,17 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         mut_launches, mut_paths = phase_mutation(g, pairs, main_run, tmp, store)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_launches, serve_paths = phase_serving(g, pairs, main_run, store)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     row = dict(name="propagate_blocks", route="cuda", layout="packed",
                source="src/repro_torch/csrc/frontier.cu",
                replaces="src/repro/kernels/frontier.py:138",
-               launches=launches + app_launches + ft_launches + mut_launches,
+               launches=launches + app_launches + ft_launches + mut_launches + serve_launches,
                max_abs_err=max_err, **timing,
-               paths=main_run["paths"] + app_paths + ft_paths + mut_paths)
+               paths=main_run["paths"] + app_paths + ft_paths + mut_paths + serve_paths)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))

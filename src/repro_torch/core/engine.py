@@ -18,6 +18,12 @@ One fused round (``slot_round``):
   * exactly ONE device->host sync: ``done`` and ``step`` stacked and
     copied together.
 
+``legacy=True`` keeps the pre-overhaul round as the A/B baseline: a
+device->host read of the liveness before admission, one ``init`` and
+row copy per admitted query, a second liveness read after admission,
+and one extract and host copy per retiring slot.  Its answers and
+counters equal the fused round's.
+
 The slot lifecycle (queue, admission, liveness mirror, retirement, stats,
 drain, preemption, journal and snapshots) lives in
 ``core/runtime.py::SlotRuntime``; the engine is its device-side
@@ -62,7 +68,6 @@ from repro_torch.kernels import ops
 # Engine options of the JAX package that later slices port, with the title
 # of the ROADMAP.md §1 queue item that carries each.
 _NOT_PORTED = {
-    "legacy": "Legacy A/B baseline",
     "mesh": "Mesh mode",
 }
 
@@ -230,12 +235,19 @@ class QuegelEngine(SlotProgram):
                  (padding, device copies of the tables, the kernel's work
                  items, int64 COO indices) while older editions keep
                  serving; ``wait_warmup()`` joins it.
+    legacy     : the pre-overhaul round, kept as the A/B baseline (module
+                 docstring); single superstep rounds only, no
+                 ``arg_carried=True``, no ``warmup``.
+    donate, interpret : accepted for the JAX signature and ignored: eager
+                 torch donates no buffers and has no interpret mode (the
+                 ``cuda`` plan launches its kernel on a CUDA tensor and
+                 runs its plain version on a CPU one).
     device     : where the slot table and graph live; ``cuda`` unless the
                  caller passes another device.  Raises without a GPU.
 
-    The JAX engine's ``legacy`` and ``mesh`` options raise
-    ``NotImplementedError`` naming the ROADMAP.md §1 queue item that ports
-    them.
+    The JAX engine's ``mesh`` option, and ``mesh_axis`` or ``partition``
+    other than their defaults, raise ``NotImplementedError`` naming the
+    ROADMAP.md §1 queue item that ports them.
     """
 
     def __init__(
@@ -268,15 +280,21 @@ class QuegelEngine(SlotProgram):
         arg_carried_threshold: int = 100_000,
         edge_capacity: Optional[int] = None,
         warmup: bool = False,
+        legacy: bool = False,
+        donate: Any = "auto",
+        interpret: bool = True,
+        mesh: Any = None,
+        mesh_axis: Optional[str] = None,
+        partition: str = "dst",
         device=None,
-        **later,
     ):
-        for name, val in later.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"QuegelEngine got an unexpected argument {name!r}")
-            if val:
+        for name, val, default in (("mesh", mesh, None), ("mesh_axis", mesh_axis, None),
+                                   ("partition", partition, "dst")):
+            if val != default:
                 raise NotImplementedError(
-                    f"{name}= is not ported yet: ROADMAP.md §1, *{_NOT_PORTED[name]}*")
+                    f"{name}={val!r} is not ported yet: ROADMAP.md §1, "
+                    f"*{_NOT_PORTED['mesh']}*")
+        del donate, interpret  # no buffer donation, no interpret mode in eager torch
         if example_query is None:
             raise ValueError("example_query required to shape the slot table")
         self.device = resolve_device(device)
@@ -288,6 +306,9 @@ class QuegelEngine(SlotProgram):
         self.steps_per_round = int(steps_per_round)
         if self.steps_per_round < 1:
             raise ValueError("steps_per_round must be >= 1")
+        self.legacy = bool(legacy)
+        if self.legacy and self.steps_per_round != 1:
+            raise ValueError("legacy mode predates multi-superstep rounds")
 
         views = {"default": (graph, blocks)}
         for name, val in (aux_graphs or {}).items():
@@ -314,18 +335,22 @@ class QuegelEngine(SlotProgram):
         # keyword search's weighted 'rev', is not carriable)
         self._arg_carried = bool(arg_carried) and arg_carried != "auto"
         if self._arg_carried:
-            carriable = all(not isinstance(be, ops.CallableBackend)
+            carriable = not self.legacy and all(not isinstance(be, ops.CallableBackend)
                             and getattr(be, "_shared", None) is None
                             for be in self._backends.values()) and all(
                 g_.csr_row is not None for g_, _ in views.values())
             if not carriable:
                 raise ValueError(
-                    "arg_carried=True needs carriable backends: no "
+                    "arg_carried=True needs carriable backends: legacy=False, no "
                     "propagate_override, no shared single-table blocks= "
                     "(pass a {sr.name: table} dict instead), and views "
                     "with the CSR view (built by Graph.from_edges)")
         self._edge_capacity = None if edge_capacity is None else int(edge_capacity)
         self.warmup = bool(warmup)
+        if self.warmup and self.legacy:
+            raise ValueError(
+                "warmup=True needs the fused round (legacy admission "
+                "dispatches per query)")
         self._view_caps: dict = {}
         self._slot_caps: dict = {}
         self._entry_caps: dict = {}
@@ -577,7 +602,15 @@ class QuegelEngine(SlotProgram):
             if isinstance(q, ResumeAdmission):
                 self._release_resume_ref(v)
             self._slot_version[slot] = v
-        if admitted:
+        S = self._slots
+        if self.legacy:
+            # the two liveness reads the fused round removed: before
+            # admission (free-slot discovery) and after it (any live?)
+            to_numpy(S["live"])
+            for slot in admitted:
+                self._admit({slot: admitted[slot]})
+            bool(S["live"].any())
+        elif admitted:
             self._admit(admitted)
         live = np.asarray(self.runtime.live, dtype=bool)
         versions = sorted({int(self._slot_version[s]) for s in np.flatnonzero(live)}) or [cur]
@@ -588,7 +621,6 @@ class QuegelEngine(SlotProgram):
             mask = None if len(versions) == 1 else torch.as_tensor(
                 (self._slot_version == v) & live, device=self.device)
             groups.append((mask, ed))
-        S = self._slots
         S["done"].zero_()
         for _ in range(self.steps_per_round):
             for mask, ed in groups:
@@ -599,8 +631,14 @@ class QuegelEngine(SlotProgram):
 
     def slot_collect(self, slots: list[int]) -> list[Any]:
         """Results for retiring slots: one batched extract, copied to the
-        host, rows sliced host-side (results are small Q-data)."""
+        host, rows sliced host-side (results are small Q-data); legacy
+        extracts and copies each slot on its own."""
         S = self._slots
+        if self.legacy:
+            row = lambda s: lambda tab: tab[int(s):int(s) + 1]
+            return [tree_map(lambda tab: to_numpy(tab)[0], self.program.extract(
+                tree_map(row(s), S["state"]), tree_map(row(s), S["query"])))
+                for s in slots]
         all_res = tree_map(to_numpy, self.program.extract(S["state"], S["query"]))
         return [tree_map(lambda tab: tab[int(s)], all_res) for s in slots]
 

@@ -83,11 +83,23 @@ def tree_map(fn, tree, *rest):
 
 
 def _treedef(tree) -> str:
-    if isinstance(tree, dict):
-        return "{" + ",".join(f"{k}:{_treedef(tree[k])}" for k in sorted(tree)) + "}"
-    if isinstance(tree, (list, tuple)):
-        return type(tree).__name__ + "(" + ",".join(_treedef(v) for v in tree) + ")"
-    return "*"
+    """The structure of a pytree as JAX's ``repr(treedef)`` spells it
+    (``PyTreeDef({'a': *, 'b': (*, None)})``), so that query hashes, and
+    the replica placement derived from them, agree across packages."""
+
+    def spell(t) -> str:
+        if t is None:
+            return "None"
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {spell(t[k])}" for k in sorted(t)) + "}"
+        if isinstance(t, tuple):
+            inner = ", ".join(spell(v) for v in t)
+            return f"({inner},)" if len(t) == 1 else f"({inner})"
+        if isinstance(t, list):
+            return "[" + ", ".join(spell(v) for v in t) + "]"
+        return "*"
+
+    return f"PyTreeDef({spell(tree)})"
 
 
 def to_numpy(x) -> np.ndarray:
@@ -320,6 +332,8 @@ def default_cache_key(query) -> str:
     """Canonicalize a query pytree: structure + per-leaf dtype/shape/bytes."""
     h = hashlib.sha1(_treedef(query).encode())
     for leaf in tree_leaves(query):
+        if leaf is None:  # a node without leaves, as in JAX
+            continue
         arr = to_numpy(leaf)
         h.update(str(arr.dtype).encode())
         h.update(str(arr.shape).encode())

@@ -132,6 +132,31 @@ def test_result_cache_matches_jax(backend):
     assert eng.stats.rounds == jeng.stats.rounds
 
 
+_KEY_QUERIES = {
+    "leaf": lambda r: r.integers(0, 90, 2).astype(np.int32),
+    "tuple": lambda r: (np.int32(r.integers(90)), np.int32(r.integers(90))),
+    "list": lambda r: [r.integers(0, 9, 3).astype(np.int32),
+                       (np.float32(r.random()), np.int64(r.integers(9)))],
+    "dict": lambda r: {"a": np.int32(r.integers(9)), "b": r.random(2).astype(np.float32)},
+    "dict_with_none": lambda r: {"k": None, "q": (np.int32(r.integers(9)),
+                                                   np.int32(r.integers(9)))},
+    "none": lambda r: None,
+}
+
+
+@pytest.mark.parametrize("structure", sorted(_KEY_QUERIES))
+def test_cache_key_matches_jax(structure):
+    """The result-cache key (graph content hash, then the query hash over
+    the structure JAX spells as ``repr(treedef)`` and every leaf's dtype,
+    shape and bytes) is the JAX engine's, so a replica pool places a query
+    on the same replica in both packages."""
+    q = _KEY_QUERIES[structure](np.random.default_rng(len(structure)))
+    eng = ppsp.make_bfs_engine(port_graph(_graph()), capacity=2, device="cpu")
+    jeng = jppsp.make_bfs_engine(_graph(), capacity=2)
+    assert eng.cache_key(q) == jeng.cache_key(q)
+    assert eng.cache_key(q).split(":")[0] == _graph().content_hash()
+
+
 def test_pump_poll_and_interactive_match_jax():
     g = _graph()
     pairs = _pairs(6, seed=3)
@@ -152,12 +177,34 @@ def test_pump_poll_and_interactive_match_jax():
     assert int(one["dist"]) == int(jeng.query(pairs[0])["dist"])
 
 
-@pytest.mark.parametrize("option", ["legacy", "mesh"])
-def test_unported_options_raise(option):
+@pytest.mark.parametrize("option,value", [("mesh", True), ("mesh_axis", "x"),
+                                          ("partition", "src")])
+def test_unported_options_raise(option, value):
     g = port_graph(_graph())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, \*Mesh mode\*"):
         QuegelEngine(g, ppsp.BFSProgram(), 2, example_query=np.zeros(2, np.int32),
-                     device="cpu", **{option: True})
+                     device="cpu", **{option: value})
+
+
+@pytest.mark.parametrize("option,value", [
+    ("donate", True), ("donate", False), ("donate", "auto"),
+    ("interpret", True), ("interpret", False),
+    ("mesh_axis,partition", (None, "dst"))])
+def test_jax_default_options_construct_and_answer_as_jax(option, value):
+    """Options of the JAX signature that mean nothing in eager torch
+    (donation, interpret mode) or only under a mesh, at their defaults,
+    construct an engine that answers as the JAX engine does."""
+    kw = dict(zip(option.split(","), value)) if "," in option else {option: value}
+    pairs = _pairs(6, seed=33)
+    eng = ppsp.make_bfs_engine(port_graph(_graph()), capacity=3, device="cpu", **kw)
+    jeng = jppsp.make_bfs_engine(_graph(), capacity=3, **kw)
+    for p in pairs:
+        eng.submit(p)
+        jeng.submit(p)
+    assert_same_results(eng.run_until_drained(), {
+        q: {k: np.asarray(v) for k, v in r.items()}
+        for q, r in jeng.run_until_drained().items()})
+    assert eng.stats.rounds == jeng.stats.rounds
 
 
 @pytest.mark.parametrize("option,value", [
@@ -196,12 +243,12 @@ def test_not_ported_messages_name_roadmap_titles():
         assert not re.search(r"§1 items? \d", text), path
         for ref_ in re.findall(r"ROADMAP\.md §1,([^)\"]*)", text):
             titles |= {t for t in re.findall(r"\*([^*]+)\*", ref_) if "{" not in t}
-    assert titles == {"Legacy A/B baseline", "Mesh mode"}, titles
+    assert titles == {"Mesh mode"}, titles
     for title in titles:
         assert f"**{title}**" in queue, title
-    with pytest.raises(NotImplementedError, match=r"\*Legacy A/B baseline\*"):
-        QuegelEngine(port_graph(_graph()), ppsp.BFSProgram(), 2,
-                     example_query=np.zeros(2, np.int32), device="cpu", legacy=True)
+    with pytest.raises(NotImplementedError, match=r"\*Mesh mode\*"):
+        ppsp.make_bfs_engine(port_graph(_graph()), capacity=2, backend="sharded",
+                             device="cpu")
 
 
 # ------------------------------------------------ engine diagnostics

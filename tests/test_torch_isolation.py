@@ -111,5 +111,7 @@ def test_every_module_is_listed():
                  "repro_torch.apps.keyword", "repro_torch.apps.reach",
                  "repro_torch.apps.xmlkw", "repro_torch.configs.quegel",
                  "repro_torch.carry", "repro_torch.core.store",
-                 "repro_torch.train.fault", "repro_torch.launch.supervise"):
+                 "repro_torch.train.fault", "repro_torch.launch.supervise",
+                 "repro_torch.launch.loadgen", "repro_torch.launch.router",
+                 "repro_torch.launch.env"):
         assert want in names

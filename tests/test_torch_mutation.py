@@ -802,8 +802,10 @@ def test_arg_carried_mode_resolution():
     assert not kw_auto._arg_carried
     with pytest.raises(ValueError, match="CSR view"):
         keyword.make_keyword_engine(g, tokens, capacity=2, device="cpu", arg_carried=True)
-    with pytest.raises(NotImplementedError, match=r"\*Legacy A/B baseline\*"):
-        mk(legacy=True)
+    # the legacy round is not carriable, as in the JAX engine
+    assert not mk(legacy=True)._arg_carried
+    with pytest.raises(ValueError, match="carriable"):
+        mk(legacy=True, arg_carried=True)
 
 
 @pytest.mark.parametrize("arg_carried", [False, True])

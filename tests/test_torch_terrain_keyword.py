@@ -83,14 +83,19 @@ def test_terrain_matches_dijkstra(backend):
     assert int(res[len(res) - 1]["visited"]) < g.n_real // 2
 
 
-@pytest.mark.parametrize("rows,cols,seed", [(12, 14, 1), (64, 64, 0)])
+@pytest.mark.parametrize("rows,cols,seed", [(12, 14, 1), (64, 64, 0), (257, 257, 0)])
 def test_terrain_euclidean_matches_xla(rows, cols, seed):
     """The early-termination test ``d[t] < d_E^min`` reads the Euclidean
     distance: the port's equals XLA's jnp.linalg.norm bit for bit, and so
-    does torch.linalg.vector_norm on the CPU."""
-    _, coords = grid_terrain(rows, cols, eps_subdiv=2, seed=seed)
+    does torch.linalg.vector_norm on the CPU.  257 x 257 is the full size
+    ``chip_smoke.py`` phase 5 runs, whose 8 sources (``default_rng(1)``'s
+    first 8 pairs) are checked here too: there the card's distances equal
+    the host's."""
+    g, coords = grid_terrain(rows, cols, eps_subdiv=2, seed=seed)
     tc = torch.from_numpy(coords)
-    src = np.random.default_rng(0).integers(0, len(coords), 8)
+    src = np.concatenate([
+        np.random.default_rng(0).integers(0, len(coords), 8),
+        np.random.default_rng(1).integers(0, g.n_real, (64, 2))[:8, 0]])
     got = terrain.euclidean(tc, torch.from_numpy(src)).numpy()
     for row, s in zip(got, src):
         want = np.asarray(jnp.linalg.norm(jnp.asarray(coords) - coords[s][None, :], axis=-1))
