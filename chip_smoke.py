@@ -64,7 +64,7 @@ Phases, each printing its own lines; any mismatch exits nonzero:
   7. mutable graphs and the gated COO plan, reusing phase 3's graph, rev
      view, pairs, tables, Hub2 index and answers and 6a's store, C=8 on
      cuda: (7a) a BiBFS engine with arg_carried=True and edge capacity
-     |E| + 4096 per view, 8 queries in flight, through 10 deltas of 64
+     |E| + 4096 per view, 8 queries in flight, through 6 deltas of 64
      added and 64 deleted undirected pairs (default_rng(7), both
      directions): the in-flight queries answer on version 0 as phase 3,
      after each delta 32 fresh pairs answer as a fresh coo engine (4 as a
@@ -106,8 +106,29 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      affine, rr and p2c (hit rate, balance, spills, p99 ticks; the merged
      map equal to phase 3's single engine; affine hits above rr's), then
      one wall-clock affine run at 0.5 x q_max.
-Every cuda path runs with the kernel's launch counts set to 0 just before
-it and read just after; then its work runs again with the kernel's output
+  9. mesh mode (core/distributed.py, launch/mesh.py, QuegelEngine(mesh=)),
+     reusing phase 3's graph, pairs and answers, phase 5's reach DAG,
+     index, pairs and answers and 7a's first three deltas, C=8: (9a) one
+     NCCL rank, mesh (1,) axis "w" on cuda:0, batch BiBFS through mesh=
+     with partition dst and src x steps_per_round 1 and 4, two interleaved
+     passes beside a single-device coo drain of the same pairs: answers
+     equal phase 3's; wall s, rounds/s, q/s, the device busy share and the
+     share of device time in NCCL kernels (profiler), the engine's
+     collective_bytes_per_round() and the model's bytes at w = 2, 4 and 8
+     (labelled modeled); (9b) reach with its label index through mesh= on
+     both partitions, answers equal phase 5's; (9c) BiBFS with
+     arg_carried=True under the mesh through the three deltas with a wave
+     of queries admitted before each and in flight across it: the spliced
+     partitions equal a full re-partition of each new view row for row,
+     Emax held, no shape change, every answer equal to a fresh
+     single-device coo engine's on its admission version; (9d) four gloo
+     ranks sharing the card with CUDA tensors, each a process of this
+     script (--gloo-rank), batch BiBFS dst and src, every rank's answers
+     equal phase 3's (timings labelled host-staged gloo, not NCCL); (9e)
+     the supervisor's SIGKILL drill with the child as one NCCL rank under
+     a mesh, 1 seed.  No frontier kernel launches in phase 9.
+Every cuda path of phases 2-8 runs with the kernel's launch counts set to
+0 just before it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
 4th, 8th, ... launch of each (semiring, dtype, Q) that the path
 launched (all but 6e, whose poisoned lanes are NaN); phase 7 holds each
@@ -444,14 +465,14 @@ def host_hub_labels(graph, is_hub: np.ndarray, h: int):
     return dist, pre
 
 
-def device_breakdown(run, wall_s: float, what: str):
+def device_breakdown(run, wall_s: float, what: str, kernel: str = "propagate_packed"):
     """Run the same work again under torch.profiler and split the device
     time by kernel; the busy share is over the unprofiled wall time of the
     same work (the profiler's own overhead would inflate it).  Only device
     activity is traced: host op events cost tens of seconds on the
-    terrain path's 16,000 supersteps.  Returns (device busy s, the
-    frontier kernel's device s), None where the profiler saw no device
-    time."""
+    terrain path's 16,000 supersteps.  Returns (device busy s, the device
+    s of the kernels whose lowercased name holds ``kernel``: the frontier
+    kernel by default), None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import frontier
@@ -476,7 +497,7 @@ def device_breakdown(run, wall_s: float, what: str):
               flush=True)
         return None, None
     busy = sum(dev.values()) / 1e6
-    kernel_s = sum(v for k, v in dev.items() if "propagate_packed" in k) / 1e6
+    kernel_s = sum(v for k, v in dev.items() if kernel in k.lower()) / 1e6
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:4]
     names = "; ".join(f"{k[:60]} {v / 1e6:.4f} s" for k, v in top)
     print(f"  {what}: device busy {busy:.4f} s of {wall_s:.4f} s wall "
@@ -914,7 +935,9 @@ def app_keyword(g):
     return launches, rows
 
 
-def app_reach():
+def app_reach(keep: dict):
+    """Reach through both plans; ``keep`` receives the DAG, its index, the
+    condensed pairs and the cuda answers that phase 9 reuses."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import breadth_first_order
 
@@ -945,6 +968,7 @@ def app_reach():
     pairs = comp[pairs0].astype(np.int32)
     make = lambda b: make_reach_engine(dag, idx, capacity=APPS_C, backend=b)
     res, launches, rows, _ = both_plans("reach", make, pairs)
+    keep.update(dag=dag.to("cpu"), index=idx.to("cpu"), pairs=pairs, results=res)
     for q, (s, t) in enumerate(pairs0):
         want = bool(np.isin(t, reached(s)))
         if bool(res[q]["reach"]) != want:
@@ -1025,11 +1049,12 @@ def app_xml():
 
 def phase_apps(g_main):
     """Phase 5: each query class through cuda and coo, checked.  Returns
-    (launches, path rows, the terrain data phase 6 reuses)."""
+    (launches, path rows, the terrain data phase 6 reuses, the reach data
+    phase 9 reuses)."""
     t0 = time.perf_counter()
-    launches, rows, terrain = 0, [], {}
-    for app in (lambda: app_terrain(terrain), lambda: app_keyword(g_main), app_reach,
-                app_xml):
+    launches, rows, terrain, reach = 0, [], {}, {}
+    for app in (lambda: app_terrain(terrain), lambda: app_keyword(g_main),
+                lambda: app_reach(reach), app_xml):
         t = time.perf_counter()
         n, r = app()
         launches += n
@@ -1037,7 +1062,7 @@ def phase_apps(g_main):
         print(f"  {time.perf_counter() - t:.1f} s", flush=True)
     print(f"phase 5: {launches} kernel launches in the cuda runs; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return launches, rows, terrain
+    return launches, rows, terrain, reach
 
 
 # ------------------------------------------------------------ phase 6
@@ -1387,7 +1412,7 @@ def phase_fault_tolerance(g, pairs, main, terrain, tmp):
 
 
 # ------------------------------------------------------------ phase 7
-MUT_DELTAS = 10        # in-capacity deltas of 7a and 7b
+MUT_DELTAS = 6         # in-capacity deltas of 7a and 7b (depth cut to fit phase 9)
 MUT_PAIRS = 64         # added and deleted undirected pairs per delta (x2 directions)
 MUT_HEADROOM = 4096    # 7a's edge capacity over |E|, per view
 MUT_OVERFLOW = 2500    # undirected pairs of 7a's overflowing delta (5,000 edges)
@@ -1436,7 +1461,7 @@ def new_rows(paths: list, before: int) -> set:
 
 
 def mut_bibfs(g, pairs, main, paths) -> dict:
-    """7a: BiBFS on cuda with arg-carried editions under 10 deltas, 8
+    """7a: BiBFS on cuda with arg-carried editions under 6 deltas, 8
     queries in flight at the first; then one overflowing delta."""
     from repro_torch.apps.ppsp import BiBFSProgram, make_bibfs_engine
     from repro_torch.core.engine import QuegelEngine
@@ -1721,7 +1746,8 @@ def mut_gated(g, pairs, main) -> None:
 def phase_mutation(g, pairs, main, tmp, store):
     """Phase 7: mutable graphs and the gated COO plan on the card, reusing
     phase 3's graph, rev view, pairs, tables, Hub2 index and answers and
-    6a's store.  Returns (launches, path rows)."""
+    6a's store.  Returns (launches, path rows, 7a's first deltas, which
+    phase 9 replays under a mesh)."""
     t0 = time.perf_counter()
     main = dict(main, rev=main["rev"].to("cuda"), hub_index=main["hub_index"].to("cuda"),
                 tables=tables_to(main["tables"], "cuda"))
@@ -1739,7 +1765,7 @@ def phase_mutation(g, pairs, main, tmp, store):
     launches = sum(r["launches"] for r in paths)
     print(f"phase 7: {launches} kernel launches in the cuda runs; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return launches, paths
+    return launches, paths, mut["deltas"][:MESH_DELTAS]
 
 
 # ------------------------------------------------------------ phase 8
@@ -2059,6 +2085,268 @@ def phase_serving(g, pairs, main, store):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches, paths
 
+# ------------------------------------------------------------ phase 9
+MESH_DELTAS = 3        # 9c: the first deltas of 7a, replayed under a mesh
+MESH_WIDTHS = (2, 4, 8)  # axis sizes 9a models the collective bytes at
+GLOO_RANKS = 4         # 9d: gloo ranks sharing the one card
+
+
+def mesh_line(tag: str, n: int, eng, dt: float) -> str:
+    st = eng.stats
+    return (f"{tag}: {n} queries, {st.rounds} rounds, {st.supersteps_total} supersteps, "
+            f"wall {dt:.4f} s, {st.rounds / dt:.3f} rounds/s, {n / dt:.3f} q/s")
+
+
+def mesh_bibfs(g, pairs, main, mesh) -> None:
+    """9a: batch BiBFS through mesh= on one NCCL rank, dst and src x k in
+    {1, 4}, two interleaved passes (the second printed as the time),
+    against phase 3's answers and a single-device coo drain."""
+    from repro_torch.apps.ppsp import make_bibfs_engine
+
+    make_bibfs_engine(g, capacity=FT_C, mesh=mesh).query(pairs[0])  # NCCL's first use
+    cells = [(part, k) for part in ("dst", "src") for k in (1, 4)]
+    walls = {}
+    for rep in range(2):
+        coo = make_bibfs_engine(g, capacity=FT_C, backend="coo")
+        for p in pairs:
+            coo.submit(p)
+        res, walls["coo", rep] = sync_time(coo.run_until_drained)
+        if not same_results(res, main["bibfs"]):
+            fail("9a: the single-device coo answers differ from phase 3's")
+        for part, k in cells:
+            eng = make_bibfs_engine(g, capacity=FT_C, mesh=mesh, partition=part,
+                                    steps_per_round=k)
+            for p in pairs:
+                eng.submit(p)
+            res, walls[part, k, rep] = no_launch(
+                f"9a {part} k={k}", lambda: sync_time(eng.run_until_drained))
+            if not same_results(res, main["bibfs"]):
+                fail(f"9a {part} k={k}: the mesh answers differ from phase 3's")
+            if rep == 0:
+                continue
+            dt, coo_s = walls[part, k, 1], walls["coo", 1]
+            print(f"  9a mesh {part} k={k} {mesh_line('BiBFS', len(pairs), eng, dt)} (first "
+                  f"pass {walls[part, k, 0]:.4f} s); {coo_s / dt:.3f} x the single-device "
+                  f"coo drain's q/s", flush=True)
+            busy, nccl = device_breakdown(redrain(eng, pairs), dt,
+                                          f"9a mesh {part} k={k}", kernel="nccl")
+            if busy:
+                print(f"  9a mesh {part} k={k}: NCCL kernels {nccl:.6f} s, "
+                      f"{100 * nccl / busy:.2f} % of device time", flush=True)
+            print(f"  9a mesh {part} k={k}: collective_bytes_per_round (w=1, this run) "
+                  f"{eng.collective_bytes_per_round()}", flush=True)
+            for w in MESH_WIDTHS:
+                m = eng.collective_bytes_per_round(n_parts=w)
+                print(f"  9a mesh {part} k={k}: modeled at w={w} (not measured): "
+                      f"state gather {m['state_gather_bytes']:.0f} B, "
+                      f"{m['propagate_bytes_per_superstep']:.0f} B per superstep, "
+                      f"{m['round_total_bytes']:.0f} B per round", flush=True)
+            del eng
+            gc.collect()
+        if rep == 1:
+            print(f"  9a {mesh_line('single-device coo', len(pairs), coo, walls['coo', 1])} "
+                  f"(first pass {walls['coo', 0]:.4f} s); answers == phase 3's and the "
+                  "mesh's", flush=True)
+
+
+def mesh_reach(reach, mesh) -> None:
+    """9b: reach with its label index through mesh= on one NCCL rank."""
+    from repro_torch.apps.reach import make_reach_engine
+
+    dag, idx = reach["dag"].to("cuda"), reach["index"].to("cuda")
+    for part in ("dst", "src"):
+        eng = make_reach_engine(dag, idx, capacity=APPS_C, mesh=mesh, partition=part)
+        for p in reach["pairs"]:
+            eng.submit(p)
+        res, dt = no_launch(f"9b {part}", lambda: sync_time(eng.run_until_drained))
+        if not same_results(res, reach["results"]):
+            fail(f"9b {part}: the mesh reach answers differ from phase 5's")
+        print(f"  9b mesh {part} {mesh_line('reach', len(reach['pairs']), eng, dt)}; "
+              f"== phase 5's answers", flush=True)
+
+
+def mesh_mutation(g, pairs, deltas, mesh) -> None:
+    """9c: BiBFS with arg_carried=True under the mesh through 7a's first
+    deltas, a wave of queries admitted before each (the slots fit every
+    wave, so each is admitted on the version it was submitted at) and in
+    flight across it: spliced partitions == a full re-partition of each
+    new view, Emax held, every answer == a fresh single-device engine's
+    on its admission version."""
+    from repro_torch.apps.ppsp import make_bibfs_engine
+    from repro_torch.core.distributed import ShardedGraph
+
+    eng = make_bibfs_engine(g, capacity=FT_C, mesh=mesh, arg_carried=True)
+    emax = {v: int(be.sg.srcp.shape[1]) for v, be in eng._backends.items()}
+    versions, waves, size = [g], [], FT_C // (len(deltas) + 1)
+    for i, delta in enumerate(deltas + [None]):
+        wave = pairs[size * i:size * (i + 1)]
+        waves.append((i, [eng.submit(p) for p in wave], wave))
+        if delta is None:
+            break
+        no_launch("9c", eng.run_round)
+        for q in waves[-1][1]:
+            slot = eng.runtime.slot_of(q)
+            if slot is not None and int(eng._slot_version[slot]) != i:
+                fail(f"9c: query {q} was admitted on version {eng._slot_version[slot]}, not {i}")
+        live = int(eng.runtime.live.sum())
+        info = eng.apply_delta(delta)
+        versions.append(eng.graph)
+        views = {"default": eng.graph, "rev": eng.aux_graphs["rev"]}
+        for v, be in eng._backends.items():
+            sg = be.sg
+            full = ShardedGraph(views[v], sg.n_parts, partition=sg.partition)
+            if int(sg.srcp.shape[1]) != emax[v]:
+                fail(f"9c delta {i + 1}: the {v} partitions' Emax moved")
+            for r in range(sg.n_parts):
+                for a, b in ((sg.srcp, full.srcp), (sg.dstp, full.dstp), (sg.wp, full.wp)):
+                    if not torch.equal(a[r][sg.valid[r]], b[r][full.valid[r]]):
+                        fail(f"9c delta {i + 1}: spliced {v} row {r} != a full re-partition")
+        ms = info["ms"]
+        print(f"  9c delta {i + 1}: {delta.size} edges, version {info['version']}, {live} "
+              f"queries in flight; host splice {ms['splice']:.3f} ms, partition splice "
+              f"{ms['tables']:.3f} ms (2 views), finish {ms['finish']:.3f} ms; spliced "
+              f"partitions == a full re-partition, Emax {emax} held", flush=True)
+    res = no_launch("9c", eng.run_until_drained)
+    if eng.stats.shape_changes:
+        fail(f"9c: in-capacity deltas changed shapes {eng.stats.shape_changes} times")
+    for i, qids, wave in waves:
+        ref = make_bibfs_engine(versions[i], capacity=FT_C, backend="coo")
+        for p in wave:
+            ref.submit(p)
+        want = ref.run_until_drained()
+        if not same_results({j: res[q] for j, q in enumerate(qids)}, want):
+            fail(f"9c: the queries admitted on version {i} differ from a fresh engine's")
+    print(f"  9c: {len(waves)} waves of {size} answered on their admission versions "
+          f"== fresh single-device coo engines; shape_changes 0", flush=True)
+
+
+def gloo_rank(out_path: str) -> None:
+    """One of 9d's ranks (``chip_smoke.py --gloo-rank OUT``, started with
+    torchrun's environment): batch BiBFS on the main graph through a
+    (GLOO_RANKS,) mesh over gloo, with CUDA tensors on the one card."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.apps.ppsp import make_bibfs_engine
+    from repro_torch.core.graph import barabasi_albert
+    from repro_torch.kernels import frontier
+    from repro_torch.launch.mesh import host_device_mesh
+
+    dist.init_process_group("gloo")
+    mesh = host_device_mesh()
+    g = barabasi_albert(MAIN_N, MAIN_M, seed=0)
+    pairs = np.random.default_rng(1).integers(0, g.n_real, (MAIN_PAIRS, 2)).astype(np.int32)
+    out = {}
+    make_bibfs_engine(g, capacity=FT_C, mesh=mesh).query(pairs[0])
+    for part in ("dst", "src"):
+        eng = make_bibfs_engine(g, capacity=FT_C, mesh=mesh, partition=part)
+        for p in pairs:
+            eng.submit(p)
+        dist.barrier()
+        res, dt = sync_time(eng.run_until_drained)
+        out[part] = dict(results=res, wall=dt, rounds=eng.stats.rounds,
+                         supersteps=eng.stats.supersteps_total)
+    out["launches"] = frontier.launches()
+    with open(f"{out_path}.{dist.get_rank()}", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_gloo(main, tmp) -> None:
+    """9d: GLOO_RANKS gloo ranks on the one card, each a process of this
+    script, batch BiBFS dst and src; every rank's answers == phase 3's."""
+    import pickle
+
+    from repro_torch.launch.supervise import free_port
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), WORLD_SIZE=str(GLOO_RANKS),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    out = os.path.join(tmp, "gloo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-rank", out],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(GLOO_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"9d: gloo ranks exited {[p.returncode for p in procs]}\n"
+             + "\n".join(text[-2000:] for text in logs))
+    for r in range(GLOO_RANKS):
+        with open(f"{out}.{r}", "rb") as f:
+            got = pickle.load(f)
+        if got["launches"]:
+            fail(f"9d rank {r}: the frontier kernel launched {got['launches']} times")
+        for part in ("dst", "src"):
+            run = got[part]
+            if not same_results(run["results"], main["bibfs"]):
+                fail(f"9d rank {r} {part}: the answers differ from phase 3's")
+            if r == 0:
+                print(f"  9d {GLOO_RANKS} gloo ranks on one card, {part}: {MAIN_PAIRS} queries, "
+                      f"{run['rounds']} rounds, {run['supersteps']} supersteps, wall "
+                      f"{run['wall']:.4f} s, {run['rounds'] / run['wall']:.3f} rounds/s, "
+                      f"{MAIN_PAIRS / run['wall']:.3f} q/s (host-staged gloo collectives, "
+                      "not NCCL)", flush=True)
+    print(f"  9d: every rank's answers == phase 3's on dst and src; "
+          f"{time.perf_counter() - t0:.1f} s with start-up", flush=True)
+
+
+def mesh_sigkill(tmp) -> None:
+    """9e: the SIGKILL drill with the child as one NCCL rank under a mesh."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.supervise", "--crash-test",
+           "--seeds", "1", "--queries", "6", "--snapshot-every", "2",
+           "--out", os.path.join(tmp, "crash_mesh"), "--device", "cuda", "--ranks", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p, wall = sync_time(lambda: subprocess.run(cmd, capture_output=True, text=True,
+                                               env=env, timeout=600))
+    for line in p.stdout.strip().splitlines():
+        print(f"    {line}", flush=True)
+    if (p.returncode != 0 or "recovered ≡ uninterrupted" not in p.stdout
+            or "ranks=1" not in p.stdout):
+        fail(f"9e: crash-test under a mesh rc={p.returncode}\n{p.stderr[-3000:]}")
+    print(f"  9e SIGKILL under a one-rank NCCL mesh: rc 0, 1 seed, {wall:.1f} s", flush=True)
+
+
+def phase_mesh(g, pairs, main, reach, deltas, tmp) -> None:
+    """Phase 9: mesh mode on the card, reusing phase 3's graph, pairs and
+    answers, phase 5's reach data and 7a's first deltas.  No frontier
+    kernel launches here: the mesh combines over edge partitions."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.supervise import free_port
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1,), ("w",))
+        print(f"phase 9: one NCCL rank, mesh (1,) axis 'w' on "
+              f"cuda:{torch.cuda.current_device()}", flush=True)
+        parts = (("9a", lambda: mesh_bibfs(g, pairs, main, mesh)),
+                 ("9b", lambda: mesh_reach(reach, mesh)),
+                 ("9c", lambda: mesh_mutation(g, pairs, deltas, mesh)),
+                 ("9d", lambda: mesh_gloo(main, tmp)),
+                 ("9e", lambda: mesh_sigkill(tmp)))
+        for name, part in parts:
+            t = time.perf_counter()
+            part()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"  {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 9: no frontier kernel launch in 9a-9d (9e's children build none); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2081,17 +2369,20 @@ def main():
     timing = phase_timing(g)
     gc.collect()
     torch.cuda.empty_cache()
-    app_launches, app_paths, terrain = phase_apps(g)
+    app_launches, app_paths, terrain, reach = phase_apps(g)
     tmp = tempfile.mkdtemp()
     try:
         ft_launches, ft_paths, store = phase_fault_tolerance(g, pairs, main_run, terrain, tmp)
         del terrain
         gc.collect()
         torch.cuda.empty_cache()
-        mut_launches, mut_paths = phase_mutation(g, pairs, main_run, tmp, store)
+        mut_launches, mut_paths, deltas = phase_mutation(g, pairs, main_run, tmp, store)
         gc.collect()
         torch.cuda.empty_cache()
         serve_launches, serve_paths = phase_serving(g, pairs, main_run, store)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_mesh(g, pairs, main_run, reach, deltas, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     row = dict(name="propagate_blocks", route="cuda", layout="packed",
@@ -2109,4 +2400,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank(sys.argv[2])
+    else:
+        main()

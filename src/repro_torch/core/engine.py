@@ -45,6 +45,26 @@ fixed capacities so that an in-capacity delta changes values only (off
 by default: nothing in eager torch reads shape stability yet), and
 ``warmup`` moves a new edition's first-use work (device copies, work
 items, index arrays) onto a background thread.
+
+Mesh mode (``mesh=``, a ``torch.distributed`` ``DeviceMesh``): every
+slot-table leaf whose trailing dim is |V| (ndim >= 2) lives V-sharded
+between rounds, each rank holding its block of the mesh axis; Q-data
+(``step``, ``live``, ``done``, ``query``) is replicated.  A round
+all-gathers the V-sharded leaves at entry (one collective), runs
+admission and the k supersteps on full values, propagating through each
+edition's ``ShardedBackend`` (``core/distributed.py``: each rank combines
+over its edge partition, one collective per propagate call), slices this
+rank's V-shard back out, and does the one done/step readback.  Results
+are the single-device engine's.
+
+The JAX engine has one controller; torch.distributed has one per rank.
+So every rank builds the same engine and submits the same queries, and
+every host decision (scheduler order, result cache, admission,
+retirement, preemption, snapshots) comes out the same on every rank,
+because each follows from the submits and the replicated done/step
+readback.  Results are returned on every rank.  Only rank 0 writes a
+journal, a store or a result file (``launch/supervise.py`` gives the
+other ranks a journal that records nothing).
 """
 from __future__ import annotations
 
@@ -58,18 +78,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.distributed import all_gather_vertex, mesh_axis_info, mesh_device
 from repro_torch.core.graph import EdgeDelta, Graph, grow_capacity
 from repro_torch.core.runtime import (
     DONE, QueryTimeoutError, ResumeAdmission, RoundOutcome, SlotProgram,
     SlotRuntime, SlotStats, default_cache_key, to_numpy, tree_leaves, tree_map)
 from repro_torch.core.semiring import BY_NAME, Semiring
 from repro_torch.kernels import ops
-
-# Engine options of the JAX package that later slices port, with the title
-# of the ROADMAP.md §1 queue item that carries each.
-_NOT_PORTED = {
-    "mesh": "Mesh mode",
-}
 
 
 @dataclasses.dataclass
@@ -242,12 +257,18 @@ class QuegelEngine(SlotProgram):
                  torch donates no buffers and has no interpret mode (the
                  ``cuda`` plan launches its kernel on a CUDA tensor and
                  runs its plain version on a CPU one).
+    mesh       : a ``DeviceMesh`` (``launch/mesh.py``) — turns on mesh mode
+                 (module docstring): V-sharded slot leaves over
+                 ``mesh_axis`` (default: the mesh's last dim), edge
+                 partitions per ``partition``.  Implies the ``sharded``
+                 backend; |V| must be a multiple of the axis size
+                 (``Graph.padded``); no ``legacy``, ``propagate_override``,
+                 ``blocks`` or ``warmup``.
+    partition  : 'dst' (all-gather of combined blocks) or 'src' (MIN/MAX/SUM
+                 all-reduce of dense partials).
     device     : where the slot table and graph live; ``cuda`` unless the
-                 caller passes another device.  Raises without a GPU.
-
-    The JAX engine's ``mesh`` option, and ``mesh_axis`` or ``partition``
-    other than their defaults, raise ``NotImplementedError`` naming the
-    ROADMAP.md §1 queue item that ports them.
+                 caller passes another device (under ``mesh=``: the mesh's
+                 device for this rank).  Raises without a GPU.
     """
 
     def __init__(
@@ -288,13 +309,35 @@ class QuegelEngine(SlotProgram):
         partition: str = "dst",
         device=None,
     ):
-        for name, val, default in (("mesh", mesh, None), ("mesh_axis", mesh_axis, None),
-                                   ("partition", partition, "dst")):
-            if val != default:
-                raise NotImplementedError(
-                    f"{name}={val!r} is not ported yet: ROADMAP.md §1, "
-                    f"*{_NOT_PORTED['mesh']}*")
         del donate, interpret  # no buffer donation, no interpret mode in eager torch
+        self.mesh = mesh
+        self.partition = partition
+        if mesh is not None:
+            if not isinstance(backend, str) or backend not in ("coo", "sharded"):
+                raise ValueError(
+                    f"mesh= implies the sharded backend; got backend={backend!r}")
+            backend = "sharded"
+            self._mesh_axis = mesh_axis or mesh.mesh_dim_names[-1]
+            self._mesh_rank, self._n_parts, self._group = mesh_axis_info(
+                mesh, self._mesh_axis)
+            if legacy:
+                raise ValueError("legacy mode is single-device only")
+            if propagate_override:
+                raise ValueError(
+                    "propagate_override and mesh= are mutually exclusive: "
+                    "override callables cannot run inside the SPMD round")
+            if graph.n % self._n_parts:
+                raise ValueError(
+                    f"|V|={graph.n} must be a multiple of mesh axis "
+                    f"'{self._mesh_axis}'={self._n_parts}: repad via "
+                    f"Graph.padded({self._n_parts})")
+            if device is None:
+                device = mesh_device(mesh)
+            elif torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device={device!r} is not on the mesh's "
+                                 f"{mesh.device_type!r} devices")
+        elif backend == "sharded":
+            raise ValueError("backend='sharded' needs mesh=")
         if example_query is None:
             raise ValueError("example_query required to shape the slot table")
         self.device = resolve_device(device)
@@ -322,9 +365,20 @@ class QuegelEngine(SlotProgram):
                 f"backend instance cannot serve auxiliary views "
                 f"{sorted(self.aux_graphs)}: pass a spec string"
             )
+        for name, (g_, b_) in views.items():
+            if mesh is not None and g_.n != graph.n:
+                raise ValueError(
+                    f"view '{name}' has |V|={g_.n} != {graph.n}: all views "
+                    "must share one padded vertex space under mesh=")
+            if mesh is not None and b_ is not None:
+                raise ValueError(
+                    f"blocks for view '{name}' have no effect under mesh=: "
+                    "the sharded backend combines over edge partitions, not "
+                    "tile tables")
         self._backends = {
             name: ops.make_backend(backend, g_, blocks=b_, block=block, gate=gate,
-                                   gather_edges=gather_edges)
+                                   gather_edges=gather_edges, mesh=mesh,
+                                   mesh_axis=mesh_axis, partition=partition)
             for name, (g_, b_) in views.items()
         }
         self.propagate_override = dict(propagate_override or {})
@@ -351,6 +405,10 @@ class QuegelEngine(SlotProgram):
             raise ValueError(
                 "warmup=True needs the fused round (legacy admission "
                 "dispatches per query)")
+        if self.warmup and mesh is not None:
+            raise ValueError(
+                "warmup=True is a single-device knob; mesh mode absorbs "
+                "mutations via arg_carried=True instead")
         self._view_caps: dict = {}
         self._slot_caps: dict = {}
         self._entry_caps: dict = {}
@@ -417,16 +475,87 @@ class QuegelEngine(SlotProgram):
         seen = []
 
         def recording(sr, x, frontier=None, which="default"):
-            seen.append((which, sr))
+            seen.append((which, sr, math.prod(x.shape) * x.element_size()))
             return x
 
         ctx = StepCtx(self.graph, self._slots["query"], self._slots["step"] + 1,
                       recording, self.index)
         self.program.superstep(self._slots["state"], ctx)
-        for which, sr in seen:
+        for which, sr, _ in seen:
             warm = getattr(self._backends[which], "table_for", None)
             if warm is not None:
                 warm(sr)
+        self._collective_model = None
+        if self.mesh is not None:
+            n = self.graph.n
+            self._vq = tree_map(lambda t: t.dim() >= 2 and t.shape[-1] == n, self._slots)
+            vq = []
+            tree_map(lambda t, m: vq.append(t) if m else None, self._slots, self._vq)
+            # payloads of the collectives, from this pass: one (C, ..., V)
+            # slab per propagate call per superstep, and the V-sharded
+            # leaves gathered at round entry
+            self._collective_model = dict(
+                propagate_calls_per_superstep=len(seen),
+                propagate_payload_bytes_per_superstep=sum(b for _, _, b in seen),
+                state_gather_payload_bytes=sum(t.numel() * t.element_size() for t in vq))
+            self._slots = self._shard(self._slots, self._vq)
+
+    # ----------------------------------------------------------------- mesh
+    def _gather(self, tree, mask):
+        """``tree`` with its V-sharded leaves (``mask``) all-gathered to
+        full |V|, in one collective."""
+        leaves = []
+        tree_map(lambda t, m: leaves.append(t) if m else None, tree, mask)
+        if not leaves:
+            return tree
+        full = iter(all_gather_vertex(leaves, self._group, self._n_parts))
+        return tree_map(lambda t, m: next(full) if m else t, tree, mask)
+
+    def _shard(self, tree, mask):
+        """``tree`` with this rank's V-shard of each leaf of ``mask``."""
+        b = self.graph.n // self._n_parts
+        lo = self._mesh_rank * b
+        return tree_map(lambda t, m: t[..., lo:lo + b].contiguous() if m else t,
+                        tree, mask)
+
+    def _rows(self, keys: tuple, slots=None) -> dict:
+        """The slot table's ``keys`` (only the rows ``slots``, if given) at
+        full |V|: under a mesh, gathered by every rank."""
+        part = {k: self._slots[k] for k in keys}
+        if slots is not None:
+            idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
+            part = tree_map(lambda tab: tab.index_select(0, idx), part)
+        if self.mesh is None:
+            return part
+        return self._gather(part, {k: self._vq[k] for k in keys})
+
+    def collective_bytes_per_round(self, n_parts: Optional[int] = None) -> Optional[dict]:
+        """Modeled per-rank wire bytes for one mesh round; None outside
+        mesh mode.
+
+        dst partition all-gathers each propagate's combined (C, V) payload
+        (ring wire cost ≈ payload · (w-1)/w per rank); src all-reduces
+        the dense partial (≈ 2× that for a ring).  Round entry additionally
+        all-gathers the V-sharded slot leaves.  The JAX engine's model,
+        key for key.  ``n_parts`` models another axis size w for the same
+        program and capacity (the payloads do not depend on w).
+        """
+        if self._collective_model is None:
+            return None
+        m = self._collective_model
+        w = self._n_parts if n_parts is None else int(n_parts)
+        f = (w - 1) / w if w > 1 else 0.0
+        prop_factor = f if self.partition == "dst" else 2.0 * f
+        per_step = m["propagate_payload_bytes_per_superstep"] * prop_factor
+        state = m["state_gather_payload_bytes"] * f
+        return dict(
+            n_parts=w,
+            partition=self.partition,
+            propagate_calls_per_superstep=m["propagate_calls_per_superstep"],
+            state_gather_bytes=state,
+            propagate_bytes_per_superstep=per_step,
+            round_total_bytes=state + self.steps_per_round * per_step,
+        )
 
     # ------------------------------------------------------------ editions
     def _finish(self, ed: _Edition) -> dict:
@@ -602,6 +731,8 @@ class QuegelEngine(SlotProgram):
             if isinstance(q, ResumeAdmission):
                 self._release_resume_ref(v)
             self._slot_version[slot] = v
+        if self.mesh is not None:
+            self._slots = self._gather(self._slots, self._vq)
         S = self._slots
         if self.legacy:
             # the two liveness reads the fused round removed: before
@@ -627,6 +758,8 @@ class QuegelEngine(SlotProgram):
                 adv = S["live"].clone() if mask is None else S["live"] & mask
                 self._superstep(adv, ed)
         out = torch.stack([S["done"].to(torch.int32), S["step"]]).cpu().numpy()
+        if self.mesh is not None:
+            self._slots = self._shard(S, self._vq)
         return RoundOutcome(done=out[0].astype(bool), steps=out[1])
 
     def slot_collect(self, slots: list[int]) -> list[Any]:
@@ -639,6 +772,11 @@ class QuegelEngine(SlotProgram):
             return [tree_map(lambda tab: to_numpy(tab)[0], self.program.extract(
                 tree_map(row(s), S["state"]), tree_map(row(s), S["query"])))
                 for s in slots]
+        if self.mesh is not None:
+            # full rows of the retiring slots, gathered by every rank
+            rows = self._rows(("state", "query"), slots)
+            res = tree_map(to_numpy, self.program.extract(rows["state"], rows["query"]))
+            return [tree_map(lambda tab: tab[i], res) for i in range(len(slots))]
         all_res = tree_map(to_numpy, self.program.extract(S["state"], S["query"]))
         return [tree_map(lambda tab: tab[int(s)], all_res) for s in slots]
 
@@ -657,9 +795,8 @@ class QuegelEngine(SlotProgram):
         place).  The version's resume reference keeps its edition from
         being pruned while the payload is off the device."""
         rows = [int(s) for s in slots]
-        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         got = []
-        tree_map(lambda tab: got.append(tab.index_select(0, idx)), self._slots["state"])
+        tree_map(got.append, self._rows(("state",), rows)["state"])
         # one device->host copy: every leaf's rows as bytes, side by side
         host = to_numpy(torch.cat(
             [g.reshape(len(rows), -1).view(torch.uint8) for g in got], 1))
@@ -712,7 +849,7 @@ class QuegelEngine(SlotProgram):
         if not self.track_frontier:
             return
         S = self._slots
-        front = self.program.frontier_of(S["state"])
+        front = self.program.frontier_of(self._rows(("state",))["state"])
         if front is None:
             return
         leaves = tree_leaves(front)

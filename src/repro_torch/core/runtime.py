@@ -495,19 +495,26 @@ class QueryJournal:
                recovery replays it through ``apply_delta_record``)
 
     ``fsync=True`` (default) makes every append durable before the runtime
-    proceeds — the crash-safety contract.
+    proceeds — the crash-safety contract.  ``write=False`` opens nothing
+    and records nothing: the journal of a mesh rank other than 0, whose
+    runtime must take the same journaled decisions (snapshot cadence) as
+    rank 0's without writing the file twice.
     """
 
-    def __init__(self, path: str, *, fsync: bool = True):
+    def __init__(self, path: str, *, fsync: bool = True, write: bool = True):
         self.path = str(path)
         self.fsync = bool(fsync)
-        d = os.path.dirname(self.path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        self._f = open(self.path, "ab")
+        self._f = None
+        if write:
+            d = os.path.dirname(self.path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self._f = open(self.path, "ab")
         self.records_written = 0
 
     def append(self, rec: dict) -> None:
+        if self._f is None:
+            return
         body = json.dumps(rec, separators=(",", ":"))
         digest = hashlib.sha256(body.encode()).hexdigest()
         self._f.write(f"{digest} {body}\n".encode())
@@ -556,10 +563,13 @@ class QueryJournal:
         })
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
     @property
     def bytes_written(self) -> int:
+        if self._f is None:
+            return 0
         self._f.flush()
         return os.path.getsize(self.path)
 

@@ -16,7 +16,9 @@ messages move.  Plans in this port:
   * ``cuda``       — the hand-written Hopper kernel (``frontier.py``) over
                      the packed layout of the same tiles (only the entries
                      that differ from the add-identity); on CPU tensors it
-                     runs its plain version.
+                     runs its plain version,
+  * ``sharded``    — edge partitions over a device mesh, one collective per
+                     superstep (``core/distributed.py``; needs ``mesh=``).
 
 Sparsity gating: on the tile plans the frontier is pushed into the block
 path.  A per-(dst block, slot) activity bitmap — the frontier reduced over
@@ -42,11 +44,6 @@ from repro_torch.core.graph import (BlockSparse, Graph, PackedBlocks, pack_block
                                     pad_block_slots, pad_packed_slots)
 from repro_torch.core.semiring import BY_NAME, Semiring
 from repro_torch.kernels import frontier, ref
-
-
-# Backends of the JAX package that later slices port, with the title of the
-# ROADMAP.md §1 queue item that carries each.
-_NOT_PORTED = {"sharded": "Mesh mode"}
 
 
 def block_activity(bs: Union[BlockSparse, PackedBlocks],
@@ -395,12 +392,17 @@ def make_backend(
     gate: bool = True,
     gather_edges: Optional[int] = None,
     strict_tables: bool = False,
+    mesh=None,
+    mesh_axis: Optional[str] = None,
+    partition: str = "dst",
 ) -> PropagateBackend:
     """Resolve a backend spec to a ``PropagateBackend`` owning ``graph``.
 
     ``strict_tables`` forbids the tile plans from building missing tables
     (the functional path's honesty rule).  ``gather_edges`` is the gated
-    COO chunk (``coo``; ``coo_gated`` defaults it to 512).
+    COO chunk (``coo``; ``coo_gated`` defaults it to 512).  ``sharded``
+    partitions the edges over ``mesh_axis`` of ``mesh`` (default: its last
+    axis) by ``partition``.
     """
     if isinstance(spec, PropagateBackend):
         return spec
@@ -413,9 +415,17 @@ def make_backend(
             "backend 'pallas' is the JAX package's TPU kernel; the port's "
             "kernel-backed tile plan is 'cuda'"
         )
-    if spec in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {spec!r} is not ported yet: ROADMAP.md §1, *{_NOT_PORTED[spec]}*")
+    if spec == "sharded":
+        if mesh is None:
+            raise ValueError(
+                "backend 'sharded' needs mesh= (a DeviceMesh whose shard axis "
+                "divides |V|; see Graph.padded)")
+        from repro_torch.core.distributed import ShardedBackend, ShardedGraph, mesh_axis_info
+
+        axis = mesh_axis or mesh.mesh_dim_names[-1]
+        n_parts = mesh_axis_info(mesh, axis)[1]
+        return ShardedBackend(ShardedGraph(graph, n_parts, partition=partition),
+                              mesh, axis)
     if spec in ("blocks_ref", "cuda"):
         if blocks is None and strict_tables:
             raise ValueError(

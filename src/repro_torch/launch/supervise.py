@@ -26,13 +26,21 @@ injector raises; this module catches it and re-boots) and real process
 death (``FailureInjector(kill_at_steps=...)`` SIGKILLs; only a parent
 process can restart — the ``--crash-test`` CLI below is that parent).
 
+Under a mesh (``--ranks N``) each attempt is a group of N rank
+processes, started with torchrun's environment (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``/``MASTER_PORT``): every rank boots the same engine on a
+``host_device_mesh`` over the graph padded to N, replays the journal
+and drains; only rank 0 writes the journal and the result file, and the
+injected SIGKILL takes down every rank at the same round.
+
 CLI::
 
     # parent: N seeds x (baseline, kill, kill, finish)
     PYTHONPATH=src python -m repro_torch.launch.supervise --crash-test \\
-        --seeds 3 --out runs/crash [--device cpu]
+        --seeds 3 --out runs/crash [--device cpu] [--ranks 2]
 
-    # one supervised serving process (what the parent spawns)
+    # one supervised serving process (what the parent spawns; under
+    # torchrun, one per rank)
     PYTHONPATH=src python -m repro_torch.launch.supervise --child --seed 0 \\
         --journal j.wal --result out.json [--kill-round 4] [--device cpu]
 """
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -139,6 +148,8 @@ def run_with_recovery(
     injector: Optional[FailureInjector] = None,
     max_rounds: int = 100_000,
     on_round: Optional[Callable[[Any, int], None]] = None,
+    writer: bool = True,
+    barrier: Optional[Callable[[], None]] = None,
 ):
     """Drain ``submits`` through a journaled engine, recovering from
     crashes.  Returns ``(engine, info)`` once drained.
@@ -152,14 +163,21 @@ def run_with_recovery(
     (``SimulatedFailure``) re-boot up to ``max_restarts`` times; a
     SIGKILL is recovered by running this function again in a new process
     against the same journal.
+
+    Under a mesh every rank calls this with the same arguments: ``writer``
+    is True on rank 0 only (the other ranks' journals record nothing),
+    and ``barrier()`` (``torch.distributed.barrier``) holds rank 0's first
+    write until every rank has replayed the journal.
     """
     restarts = 0
     while True:
         eng = boot()
         rt = eng.runtime
-        rt.journal = QueryJournal(journal_path, fsync=fsync)
+        rt.journal = QueryJournal(journal_path, fsync=fsync, write=writer)
         rt.snapshot_every = int(snapshot_every)
         info = recover(rt, journal_path)
+        if barrier is not None:
+            barrier()
         known = info.pop("known_qids")
         for i, item in enumerate(submits):
             if i in known:
@@ -207,11 +225,24 @@ def _result_map(eng) -> dict:
 
 def _child(args) -> int:
     """One supervised serving process over a deterministic workload; the
-    injected SIGKILL (if any) models a machine loss mid-drain."""
+    injected SIGKILL (if any) models a machine loss mid-drain.  Started
+    with torchrun's environment, it is one rank of a mesh (module
+    docstring)."""
     from repro_torch.apps.ppsp import make_bfs_engine
     from repro_torch.core.graph import random_graph
 
+    mesh, rank, barrier = None, 0, None
+    if "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import host_device_mesh
+
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+        mesh, rank, barrier = (host_device_mesh(device_type=args.device),
+                               dist.get_rank(), dist.barrier)
     g = random_graph(64, 3.0, seed=args.seed, directed=True, device=args.device)
+    if mesh is not None:
+        g = g.padded(mesh.size())
     rng = np.random.default_rng(args.seed)
     pairs = rng.integers(0, g.n_real, (args.queries, 2))
     submits = [
@@ -221,20 +252,61 @@ def _child(args) -> int:
 
     def boot():
         return make_bfs_engine(g, capacity=4, scheduler=args.scheduler,
-                               device=args.device)
+                               mesh=mesh, device=None if mesh else args.device)
 
     injector = None
     if args.kill_round > 0:
         injector = FailureInjector(kill_at_steps={args.kill_round})
     eng, info = run_with_recovery(
         boot, args.journal, submits, snapshot_every=args.snapshot_every,
-        injector=injector)
-    with open(args.result, "w") as f:
-        json.dump(_result_map(eng), f, indent=0, sort_keys=True)
-    print(f"CHILD_DONE replayed={info['replayed_done']} "
-          f"resumed={info['resumed_from_snapshot']} "
-          f"resubmitted={info['resubmitted']}")
+        injector=injector, writer=rank == 0, barrier=barrier)
+    if rank == 0:
+        with open(args.result, "w") as f:
+            json.dump(_result_map(eng), f, indent=0, sort_keys=True)
+        print(f"CHILD_DONE replayed={info['replayed_done']} "
+              f"resumed={info['resumed_from_snapshot']} "
+              f"resubmitted={info['resubmitted']}"
+              + (f" ranks={mesh.size()}" if mesh is not None else ""))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no process listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_group(cmd: list, env: dict, ranks: int, timeout: float):
+    """One attempt: the child alone, or ``ranks`` rank processes of it with
+    torchrun's environment.  Returns (rc, rank 0's stdout, stderrs): rc is
+    0 when every rank exited 0, else the first rank's nonzero code (-9 for
+    the injected SIGKILL); a group outliving ``timeout`` is killed."""
+    if ranks == 0:
+        p = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=timeout)
+        return p.returncode, p.stdout, p.stderr
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(env, WORLD_SIZE=str(ranks), RANK=str(r), LOCAL_RANK=str(r),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+        for r in range(ranks)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate())
+    rcs = [p.returncode for p in procs]
+    rc = next((c for c in rcs if c != 0), 0)
+    return rc, outs[0][0], "".join(e for _, e in outs)
 
 
 def _crash_test(args) -> int:
@@ -261,12 +333,12 @@ def _crash_test(args) -> int:
                 "--snapshot-every", str(args.snapshot_every),
                 "--scheduler", args.scheduler, "--device", args.device,
             ]
-            return subprocess.run(cmd, capture_output=True, text=True, env=env)
+            return _run_group(cmd, env, args.ranks, timeout=600)
 
-        base = spawn(os.path.join(d, "baseline.wal"),
-                     os.path.join(d, "baseline.json"), 0)
-        if base.returncode != 0:
-            print(f"seed {seed}: BASELINE FAILED\n{base.stdout}\n{base.stderr}")
+        rc, out, err = spawn(os.path.join(d, "baseline.wal"),
+                             os.path.join(d, "baseline.json"), 0)
+        if rc != 0:
+            print(f"seed {seed}: BASELINE FAILED\n{out}\n{err}")
             failures += 1
             continue
         wal = os.path.join(d, "crashed.wal")
@@ -275,13 +347,12 @@ def _crash_test(args) -> int:
         rc = None
         for attempt, kr in enumerate(kills + [0]):
             t0 = time.perf_counter()
-            p = spawn(wal, res, kr)
-            rc = p.returncode
+            rc, out, err = spawn(wal, res, kr)
             print(f"seed {seed} attempt {attempt} kill_round={kr} "
                   f"rc={rc} ({time.perf_counter() - t0:.1f}s) "
-                  f"{p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ''}")
+                  f"{out.strip().splitlines()[-1] if out.strip() else ''}")
             if kr == 0 and rc != 0:
-                print(f"seed {seed}: FINAL ATTEMPT FAILED\n{p.stderr[-3000:]}")
+                print(f"seed {seed}: FINAL ATTEMPT FAILED\n{err[-3000:]}")
                 failures += 1
                 break
             if rc == 0:
@@ -324,6 +395,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scheduler", default="sjf")
     ap.add_argument("--device", default="cuda",
                     help="where each child's engine runs (cpu only when asked)")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run each child as this many mesh ranks (gloo on cpu, "
+                         "nccl on cuda); 0: one process, no mesh")
     args = ap.parse_args(argv)
     if args.child:
         return _child(args)

@@ -18,7 +18,6 @@ from repro.core.graph import random_dag, random_graph
 
 import repro_torch
 from repro_torch.apps import ppsp, reach
-from repro_torch.core import engine as tengine
 from repro_torch.core.engine import QuegelEngine
 from repro_torch.kernels import ops, ref
 
@@ -180,10 +179,27 @@ def test_pump_poll_and_interactive_match_jax():
 @pytest.mark.parametrize("option,value", [("mesh", True), ("mesh_axis", "x"),
                                           ("partition", "src")])
 def test_unported_options_raise(option, value):
+    """The mesh options, ported now, behave as the JAX engine's without a
+    mesh: a ``mesh`` that is not one is refused by both (neither has its
+    axis names), and ``mesh_axis``/``partition`` alone change nothing."""
     g = port_graph(_graph())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, \*Mesh mode\*"):
-        QuegelEngine(g, ppsp.BFSProgram(), 2, example_query=np.zeros(2, np.int32),
-                     device="cpu", **{option: value})
+    if option == "mesh":
+        with pytest.raises(AttributeError, match="mesh_dim_names"):
+            QuegelEngine(g, ppsp.BFSProgram(), 2, example_query=np.zeros(2, np.int32),
+                         device="cpu", mesh=value)
+        with pytest.raises(AttributeError, match="axis_names"):
+            jppsp.make_bfs_engine(_graph(), capacity=2, mesh=value)
+        return
+    pairs = _pairs(6, seed=34)
+    eng = ppsp.make_bfs_engine(g, capacity=3, device="cpu", **{option: value})
+    jeng = jppsp.make_bfs_engine(_graph(), capacity=3, **{option: value})
+    for p in pairs:
+        eng.submit(p)
+        jeng.submit(p)
+    assert_same_results(eng.run_until_drained(), {
+        q: {k: np.asarray(v) for k, v in r.items()}
+        for q, r in jeng.run_until_drained().items()})
+    assert eng.collective_bytes_per_round() is jeng.collective_bytes_per_round() is None
 
 
 @pytest.mark.parametrize("option,value", [
@@ -234,21 +250,25 @@ def _roadmap_queue() -> str:
 
 def test_not_ported_messages_name_roadmap_titles():
     """Every option or backend that is not ported names a §1 queue item by
-    its title, and every such title heads an item of the queue."""
+    its title, and every such title heads an item of the queue.  Mesh mode
+    is ported: ``backend="sharded"`` without ``mesh=`` raises the JAX
+    engine's ValueError."""
     queue = _roadmap_queue()
-    titles = set(tengine._NOT_PORTED.values()) | set(ops._NOT_PORTED.values())
+    titles = set()
     pkg = Path(repro_torch.__file__).resolve().parent
     for path in pkg.rglob("*.py"):
         text = path.read_text()
         assert not re.search(r"§1 items? \d", text), path
         for ref_ in re.findall(r"ROADMAP\.md §1,([^)\"]*)", text):
             titles |= {t for t in re.findall(r"\*([^*]+)\*", ref_) if "{" not in t}
-    assert titles == {"Mesh mode"}, titles
+    assert "Mesh mode" not in titles and "**Mesh mode**" not in queue
     for title in titles:
         assert f"**{title}**" in queue, title
-    with pytest.raises(NotImplementedError, match=r"\*Mesh mode\*"):
+    with pytest.raises(ValueError, match=r"^backend='sharded' needs mesh=$"):
         ppsp.make_bfs_engine(port_graph(_graph()), capacity=2, backend="sharded",
                              device="cpu")
+    with pytest.raises(ValueError, match=r"^backend='sharded' needs mesh=$"):
+        jppsp.make_bfs_engine(_graph(), capacity=2, backend="sharded")
 
 
 # ------------------------------------------------ engine diagnostics

@@ -100,6 +100,30 @@ def test_app_entry_points_refuse_the_cpu_unless_asked(no_gpu):
         assert make(device="cpu").device.type == "cpu"
 
 
+def test_mesh_entry_points_refuse_without_a_group_or_card(no_gpu, tmp_path):
+    """No mesh starts a process group itself or falls back to the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    assert not dist.is_initialized()
+    for make in (lambda: mesh.make_mesh((1,), ("w",), device_type="cpu"),
+                 mesh.host_device_mesh, mesh.elastic_mesh):
+        with pytest.raises(RuntimeError, match="initialised process group"):
+            make()
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            mesh.host_device_mesh()
+        m = mesh.host_device_mesh(device_type="cpu")
+        g = tgraph.random_graph(32, 2.0, seed=1, device="cpu")
+        assert ppsp.make_bfs_engine(g, mesh=m).device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
+
+
 def test_every_module_is_listed():
     """The walk above sees the whole tree the README describes."""
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
@@ -113,5 +137,6 @@ def test_every_module_is_listed():
                  "repro_torch.carry", "repro_torch.core.store",
                  "repro_torch.train.fault", "repro_torch.launch.supervise",
                  "repro_torch.launch.loadgen", "repro_torch.launch.router",
-                 "repro_torch.launch.env"):
+                 "repro_torch.launch.env", "repro_torch.core.distributed",
+                 "repro_torch.launch.mesh"):
         assert want in names

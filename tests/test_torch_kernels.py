@@ -146,8 +146,8 @@ def test_make_backend_refusals():
     tg = port_graph(random_graph(20, 2.0, seed=1))
     with pytest.raises(ValueError, match="'cuda'"):
         ops.make_backend("pallas", tg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.make_backend("sharded", tg)
+    with pytest.raises(ValueError, match=r"needs mesh=.*Graph\.padded"):
+        ops.make_backend("sharded", tg)  # ported: a mesh is needed, as in JAX
     assert ops.make_backend("coo_gated", tg).gather_edges == 512
     with pytest.raises(ValueError, match="blocks="):
         ops.propagate(tg, BY_NAME["min_right"], torch.zeros((1, tg.n), dtype=torch.int32),
