@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path and its other query classes on
-one GPU and hold its kernel against the plain PyTorch version.
+"""Drive the PyTorch/CUDA port's main path, its other query classes and
+its LM server on one GPU and hold its kernel against the plain PyTorch
+version.
 
     python3 chip_smoke.py
 
@@ -127,6 +128,33 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      equal phase 3's (timings labelled host-staged gloo, not NCCL); (9e)
      the supervisor's SIGKILL drill with the child as one NCCL rank under
      a mesh, 1 seed.  No frontier kernel launches in phase 9.
+ 10. LM serving (configs/*, models/*, launch/serve.py) in float32, TF32
+     off, after freeing the graph phases' state: (10a) TinyLlama-1.1B at
+     full width and depth (22 layers, d 2,048, 32 heads over 4 KV heads,
+     d_ff 5,632, vocab 32,000), its weights drawn on the host by
+     init_params from a seeded CPU generator and copied to the card; one
+     32-token prompt's forward on the card against the host's forward,
+     and teacher-forced serve_step against the card's forward, each
+     within 1e-3 x max |logit|; (10b) SlotServer(capacity=8,
+     max_len=512), fifo, 32 requests (prompts of 16-128 tokens,
+     max_new_tokens 16-64, default_rng(0)) plus one over max_len, which
+     must be REJECTED: requests, rounds, tokens, prefill tokens, wall,
+     tok/s, ms per decode round and per prefill token (each prefill
+     synchronized and timed apart), max_memory_allocated; 4 requests
+     held against a no-cache greedy decode through forward on the card;
+     8 requests at C=1 against C=8 and against the 32-request run; the
+     device busy share and top device ops of a short C=8 mix (profiler);
+     preemptive sjf at C=2 (2 long requests, then 6 short ones) retiring
+     every short request before either long one with the tokens of the
+     run without preemption; (10c) gemma2-9b at full width (d 3,584, 16
+     heads over 8 KV heads of 256, d_ff 14,336, vocab 256,000, both
+     softcaps), depth cut to 8 layers, weights drawn on the card from a
+     seeded CUDA generator: teacher-forced decode against forward within
+     1e-3 x max |logit|, and 8 requests at C=1 against C=4.  Near-tie
+     rule: two token streams may differ only where the reference's top-2
+     logit gap at the first differing step is within 1e-3 x max |logit|
+     (through forward on the card); the smallest such gap is printed, and
+     any other divergence fails.  No frontier kernel launches in phase 10.
 Every cuda path of phases 2-8 runs with the kernel's launch counts set to
 0 just before it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
@@ -140,6 +168,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2348,6 +2377,320 @@ def phase_mesh(g, pairs, main, reach, deltas, tmp) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 10
+LM_C, LM_MAX_LEN, LM_REQUESTS = 8, 512, 32   # 10b's slot table and load
+LM_PROMPT, LM_NEW = (16, 128), (16, 64)      # drawn from default_rng(0), both ends in
+LM_REF = 4             # 10b requests held against a no-cache greedy forward
+LM_PAIR = 8            # 10b requests served at C=1 and at C=8
+LM_TIE = 1e-3          # near-tie rule: a stream may differ only where the
+                       # reference's top-2 gap is within this share of max |logit|
+GEMMA_LAYERS = 8       # 10c: 4 local/global super-blocks of gemma2-9b's 42 layers
+GEMMA_C, GEMMA_MAX_LEN, GEMMA_REQUESTS = 4, 256, 8
+
+
+class LMCheck:
+    """The near-tie rule of phase 10.  ``gap`` returns the reference's
+    top-2 logit gap, over its max |logit|, at the step after ``tokens``
+    (through the full-context forward on the card); ``same`` holds two
+    token streams of one prompt to it and records the smallest gap it
+    saw where streams differ."""
+
+    def __init__(self, cfg, params):
+        self.cfg, self.params = cfg, params
+        self.diverged = []
+
+    def logits(self, tokens) -> torch.Tensor:
+        from repro_torch.models import transformer as T
+
+        with torch.no_grad():
+            seq = torch.as_tensor(np.asarray(tokens, np.int32)[None], device="cuda")
+            return T.forward(self.params, self.cfg, {"tokens": seq})[0]
+
+    @staticmethod
+    def rel_gap(row: torch.Tensor) -> float:
+        top = torch.topk(row, 2).values
+        return float((top[0] - top[1]) / row.abs().max())
+
+    def same(self, what: str, prompt, a, b) -> bool:
+        a, b = list(map(int, a)), list(map(int, b))
+        if len(a) != len(b):
+            fail(f"{what}: {len(a)} tokens against {len(b)}")
+        if a == b:
+            return True
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        gap = self.rel_gap(self.logits(list(prompt) + a[:i])[-1])
+        if gap > LM_TIE:
+            fail(f"{what}: streams differ at step {i} ({a[i]} against {b[i]}) where the "
+                 f"reference's top-2 gap is {gap:.3e} of max |logit| (> {LM_TIE})")
+        self.diverged.append(gap)
+        print(f"  {what}: streams differ at step {i} of {len(a)}, a near tie "
+              f"(top-2 gap {gap:.3e} of max |logit|)", flush=True)
+        return False
+
+    def greedy(self, what: str, prompt, got) -> float:
+        """Hold ``got`` against a no-cache greedy decode through forward;
+        returns the smallest top-2 gap (relative) along the reference."""
+        toks, smallest = list(map(int, prompt)), math.inf
+        for i, tok in enumerate(map(int, got)):
+            row = self.logits(toks)[-1]
+            ref = int(torch.argmax(row))
+            smallest = min(smallest, self.rel_gap(row))
+            if ref != tok:
+                self.same(what, prompt, list(got[:i]) + [ref], got[: i + 1])
+                return smallest
+            toks.append(tok)
+        return smallest
+
+
+def lm_requests(rng, n: int, vocab: int, plens, news) -> list:
+    from repro_torch.launch.serve import Request
+
+    lens = rng.integers(plens[0], plens[1] + 1, n)
+    new = rng.integers(news[0], news[1] + 1, n)
+    return [Request(rid, rng.integers(0, vocab, int(lens[rid]), dtype=np.int32),
+                    max_new_tokens=int(new[rid]), budget=int(new[rid]))
+            for rid in range(n)]
+
+
+def lm_serve(cfg, params, reqs, **kw):
+    """Drain ``reqs`` through a fresh SlotServer with the prefill calls
+    timed apart (a synchronize around each); returns the server and a
+    dict of wall s, prefill s and prefill tokens."""
+    from repro_torch.launch.serve import Request, SlotServer
+
+    srv = SlotServer(cfg, params, device="cuda", **kw)
+    t = dict(prefill_s=0.0, prefill_tokens=0)
+    orig = srv._prefill_slot
+
+    def timed(slot, prompt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(slot, prompt)
+        torch.cuda.synchronize()
+        t["prefill_s"] += time.perf_counter() - t0
+        t["prefill_tokens"] += len(prompt)
+
+    srv._prefill_slot = timed
+    for r in reqs:
+        srv.submit(Request(r.rid, r.prompt, r.max_new_tokens, budget=r.budget))
+    _, t["wall_s"] = sync_time(srv.run_until_drained)
+    return srv, t
+
+
+def lm_line(tag: str, srv, t: dict) -> str:
+    st = srv.stats
+    decode_s = t["wall_s"] - t["prefill_s"]
+    return (f"{tag}: {st.requests_done} requests, {st.rounds} rounds, "
+            f"{st.tokens_generated} tokens generated, {t['prefill_tokens']} prefill tokens, "
+            f"wall {t['wall_s']:.4f} s, {st.tokens_generated / t['wall_s']:.2f} tok/s "
+            f"(decode only {st.tokens_generated / decode_s:.2f} tok/s), "
+            f"{1e3 * decode_s / st.rounds:.3f} ms per decode round, "
+            f"{1e3 * t['prefill_s'] / max(t['prefill_tokens'], 1):.3f} ms per prefill token")
+
+
+def lm_forward_checks(tag: str, cfg, params, host=None):
+    """The card's forward against the host's (when given), and teacher-forced
+    serve_step against the card's forward, on one 32-token prompt."""
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(5)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 32), dtype=np.int32))
+    with torch.no_grad():
+        (full,), dt = sync_time(lambda: T.forward(params, cfg, {"tokens": prompt.cuda()}))
+        scale = float(full.abs().max())
+        if host is not None:
+            t0 = time.perf_counter()
+            want = T.forward(host, cfg, {"tokens": prompt})[0]
+            err = float((full.cpu() - want).abs().max())
+            print(f"  {tag}: forward on the card against the host (float32, CPU, "
+                  f"{time.perf_counter() - t0:.1f} s): max |d| {err:.3e}, "
+                  f"max |logit| {float(want.abs().max()):.4f}", flush=True)
+            if not err <= LM_TIE * float(want.abs().max()):
+                fail(f"{tag}: the card's forward is {err:.3e} from the host's")
+        cache = T.init_cache(cfg, 1, 32, dtype=torch.float32, device="cuda")
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(32):
+            logits, cache = T.serve_step(params, cfg, cache, prompt[:, i:i + 1].cuda(),
+                                         torch.full((1,), i, dtype=torch.int32, device="cuda"))
+            steps.append(logits[0])
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / 32
+        err = float((torch.stack(steps) - full).abs().max())
+    print(f"  {tag}: teacher-forced serve_step against forward: max |d| {err:.3e}, "
+          f"max |logit| {scale:.4f}; forward of 32 tokens {1e3 * dt:.2f} ms, "
+          f"a C=1 step {step_ms:.3f} ms", flush=True)
+    if not err <= LM_TIE * scale:
+        fail(f"{tag}: teacher-forced decode is {err:.3e} from forward")
+
+
+def lm_tinyllama():
+    """10a and 10b on TinyLlama-1.1B at full width and depth, float32."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import REJECTED, tree_leaves, tree_map
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), dtype="float32")
+    t0 = time.perf_counter()
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    init_s = time.perf_counter() - t0
+    params, copy_s = sync_time(lambda: tree_map(lambda x: x.cuda(), host))
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"  10a: {cfg.name} float32, {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{n:,} parameters ({4 * n / 1e9:.2f} GB) drawn on the host in {init_s:.1f} s, "
+          f"copied in {copy_s:.1f} s; TF32 {torch.backends.cuda.matmul.allow_tf32}",
+          flush=True)
+    lm_forward_checks("10a", cfg, params, host)
+    del host
+    gc.collect()
+
+    chk = LMCheck(cfg, params)
+    rng = np.random.default_rng(0)
+    reqs = lm_requests(rng, LM_REQUESTS, cfg.vocab, LM_PROMPT, LM_NEW)
+    over = Request(LM_REQUESTS, rng.integers(0, cfg.vocab, LM_MAX_LEN - 8, dtype=np.int32),
+                   max_new_tokens=16, budget=16)
+    torch.cuda.reset_peak_memory_stats()
+    srv, t = lm_serve(cfg, params, reqs + [over], capacity=LM_C, max_len=LM_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  10b {lm_line(f'C={LM_C} fifo', srv, t)}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if srv.statuses[over.rid] != REJECTED or srv.stats.rejected != 1 or len(srv.results[over.rid]):
+        fail(f"10b: a {len(over.prompt)}+{over.max_new_tokens}-token request was not REJECTED")
+    if srv.stats.requests_done != LM_REQUESTS or any(
+            len(srv.results[r.rid]) != r.max_new_tokens for r in reqs):
+        fail("10b: a request did not finish with its max_new_tokens")
+    main = {r.rid: srv.results[r.rid] for r in reqs}
+
+    smallest = min(chk.greedy(f"10b request {r.rid} against greedy forward", r.prompt,
+                              main[r.rid]) for r in reqs[:LM_REF])
+    print(f"  10b: {LM_REF} requests against a no-cache greedy forward on the card: "
+          f"smallest top-2 gap along the references {smallest:.3e} of max |logit|", flush=True)
+
+    pair = reqs[:LM_PAIR]
+    s1, t1 = lm_serve(cfg, params, pair, capacity=1, max_len=LM_MAX_LEN)
+    s8, t8 = lm_serve(cfg, params, pair, capacity=LM_C, max_len=LM_MAX_LEN)
+    print(f"  10b {lm_line('C=1', s1, t1)}", flush=True)
+    print(f"  10b {lm_line(f'C={LM_C}', s8, t8)}", flush=True)
+    same = sum(chk.same(f"10b request {r.rid}, C=1 against C={LM_C}", r.prompt,
+                        s1.results[r.rid], s8.results[r.rid])
+               & chk.same(f"10b request {r.rid}, C={LM_C} of {LM_PAIR} against of "
+                          f"{LM_REQUESTS}", r.prompt, s8.results[r.rid], main[r.rid])
+               for r in pair)
+    # superstep sharing shows in the decode-only rate; the end-to-end rate
+    # also holds the same table-wide prefill steps at either C
+    decode = (t1["wall_s"] - t1["prefill_s"]) / (t8["wall_s"] - t8["prefill_s"])
+    ratio = t1["wall_s"] / t8["wall_s"]
+    print(f"  10b: {same} of {LM_PAIR} requests identical at C=1, at C={LM_C} and in the "
+          f"{LM_REQUESTS}-request run; C={LM_C} / C=1 decode-only tok/s {decode:.3f} "
+          f"(end to end, with the table-wide prefill, {ratio:.3f})", flush=True)
+    # the profiler's cost grows with the kernels traced (146 s for the
+    # 487 steps above), so the busy share is read on a short mix: 8
+    # requests of 4 + 4 tokens, 36 table-wide steps
+    short = lm_requests(np.random.default_rng(3), LM_C, cfg.vocab, (4, 4), (4, 4))
+    _, ts = lm_serve(cfg, params, short, capacity=LM_C, max_len=LM_MAX_LEN)
+    busy, gemm = device_breakdown(lambda: lm_serve(cfg, params, short, capacity=LM_C,
+                                                   max_len=LM_MAX_LEN),
+                                  ts["wall_s"], f"10b C={LM_C}, {LM_C} requests of 4 + 4 "
+                                  "tokens", kernel="gemm")
+    if busy:
+        print(f"  10b: {100 * gemm / busy:.1f} % of the device time in GEMM kernels "
+              f"(names holding 'gemm')", flush=True)
+
+    # preemptive sjf at C=2: two long requests hold both slots, six short
+    # ones arrive after the first round
+    longs = lm_requests(np.random.default_rng(1), 2, cfg.vocab, (64, 64), (64, 64))
+    shorts = [dataclasses.replace(r, rid=r.rid + 2) for r in
+              lm_requests(np.random.default_rng(2), 6, cfg.vocab, (16, 16), (4, 4))]
+    runs = {}
+    for preemptive in (True, False):
+        srv = SlotServer(cfg, params, capacity=2, max_len=LM_MAX_LEN, scheduler="sjf",
+                         preemptive=preemptive, device="cuda")
+        for r in longs:
+            srv.submit(r)
+        srv.run_round()
+        for r in shorts:
+            srv.submit(r)
+        order = []
+        t0 = time.perf_counter()
+        while srv.runtime.pending() or srv.runtime.live.any():
+            before = set(srv.results)
+            srv.run_round()
+            order += sorted(set(srv.results) - before)
+        runs[preemptive] = (srv, order, time.perf_counter() - t0)
+    srv, order, dt = runs[True]
+    if max(order.index(r.rid) for r in shorts) > min(order.index(r.rid) for r in longs):
+        fail(f"10b preemptive sjf: retirement order {order}")
+    if not srv.stats.preemptions:
+        fail("10b preemptive sjf: no request was suspended")
+    for r in longs + shorts:
+        chk.same(f"10b preemptive sjf request {r.rid} against uninterrupted", r.prompt,
+                 srv.results[r.rid], runs[False][0].results[r.rid])
+    print(f"  10b preemptive sjf, C=2: retirement order {order} ({srv.stats.preemptions} "
+          f"suspensions, {srv.stats.resumes} resumes, {dt:.2f} s; without preemption "
+          f"{runs[False][1]}, {runs[False][2]:.2f} s)", flush=True)
+    return chk
+
+
+def lm_gemma():
+    """10c: gemma2-9b at full width, depth cut to GEMMA_LAYERS, float32, its
+    weights drawn on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import tree_leaves
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch("gemma2-9b"), dtype="float32", n_layers=GEMMA_LAYERS)
+    params, init_s = sync_time(lambda: T.init_params(
+        cfg, torch.Generator("cuda").manual_seed(0), device="cuda"))
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"  10c: {cfg.name} float32, {cfg.n_layers} layers "
+          f"({T.n_stacked(cfg)} stacked {'/'.join(cfg.attn_pattern)} super-blocks), "
+          f"d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.hd}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, softcaps {cfg.attn_softcap}/"
+          f"{cfg.final_softcap}: {n:,} parameters ({4 * n / 1e9:.2f} GB) drawn on the "
+          f"card in {init_s:.1f} s", flush=True)
+    lm_forward_checks("10c", cfg, params)
+    chk = LMCheck(cfg, params)
+    reqs = lm_requests(np.random.default_rng(1), GEMMA_REQUESTS, cfg.vocab, (8, 32), (8, 24))
+    torch.cuda.reset_peak_memory_stats()
+    s4, t4 = lm_serve(cfg, params, reqs, capacity=GEMMA_C, max_len=GEMMA_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    s1, t1 = lm_serve(cfg, params, reqs, capacity=1, max_len=GEMMA_MAX_LEN)
+    print(f"  10c {lm_line(f'C={GEMMA_C}', s4, t4)}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"  10c {lm_line('C=1', s1, t1)}", flush=True)
+    same = sum(chk.same(f"10c request {r.rid}, C=1 against C={GEMMA_C}", r.prompt,
+                        s1.results[r.rid], s4.results[r.rid]) for r in reqs)
+    print(f"  10c: {same} of {len(reqs)} requests identical at C=1 and C={GEMMA_C}",
+          flush=True)
+    return chk
+
+
+def phase_lm() -> None:
+    """Phase 10: LM serving on the card (10a forward and decode checks, 10b
+    serving, on TinyLlama-1.1B; 10c gemma2-9b cut to 8 layers).  No
+    frontier kernel launches here."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's default, held
+    take_counts()
+    print("phase 10: LM serving (models/*, launch/serve.py), float32", flush=True)
+    gaps = []
+    for name, part in (("10a-10b", lm_tinyllama), ("10c", lm_gemma)):
+        t = time.perf_counter()
+        gaps += part().diverged
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    if take_counts()[0]:
+        fail("phase 10 launched the frontier kernel")
+    where = (f"{len(gaps)} near-tie divergences, smallest gap {min(gaps):.3e}"
+             if gaps else "no stream diverged")
+    print(f"phase 10: {where}; no frontier kernel launch; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2391,6 +2734,11 @@ def main():
                launches=launches + app_launches + ft_launches + mut_launches + serve_launches,
                max_abs_err=max_err, **timing,
                paths=main_run["paths"] + app_paths + ft_paths + mut_paths + serve_paths)
+    # phase 10 needs none of the graph phases' state: free it on the card
+    del g, pairs, main_run, reach, deltas, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))

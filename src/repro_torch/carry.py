@@ -7,7 +7,9 @@ and capacity padding), ``EdgeDelta``, ``BlockSparse``, ``HubIndex``,
 ``InvertedIndex``'s tokens, terrain coords), and returns the port's
 object on ``device``.  With this a graph, delta, table or index one
 package built can be used by the other, so query parity is testable apart
-from build parity.
+from build parity.  An LM's parameters and decode cache come over the
+same way, as the nested dicts and lists of numpy arrays of the JAX
+pytree (``jax.random`` keys cannot be replayed in torch).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.apps.keyword import InvertedIndex
 from repro_torch.apps.reach import ReachIndex
 from repro_torch.apps.xmlkw import XMLIndex
 from repro_torch.core.graph import BlockSparse, EdgeDelta, Graph
+from repro_torch.core.runtime import tree_map
 
 
 def _t(a, dev) -> torch.Tensor:
@@ -83,3 +86,23 @@ def inverted_index_from_numpy(tokens, device=None) -> InvertedIndex:
 def coords_from_numpy(coords, device=None) -> torch.Tensor:
     """Terrain vertex positions (V, 3) float32, the terrain engine's index."""
     return _t(np.asarray(coords, np.float32), resolve_device(device))
+
+
+def _leaf(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
+    return _t(a, dev)
+
+
+def params_from_numpy(tree, device=None):
+    """An LM parameter pytree (``models/transformer.py``'s keys: nested
+    dicts and lists of numpy arrays) as tensors, dtypes unchanged."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf(a, dev), tree)
+
+
+def cache_from_numpy(tree, device=None):
+    """A decode cache pytree (``init_cache``'s keys) as tensors, dtypes
+    unchanged."""
+    return params_from_numpy(tree, device)

@@ -23,6 +23,8 @@ EXAMPLES = {
                           "the reopened graph answers as version 0 did"),
     "torch_xml_search.py": (["--n", "2000", "--queries", "6"],
                             "SLCANaive finds the same SLCAs"),
+    "torch_serve_continuous_batching.py": (["--requests", "6"],
+                                           "outputs identical across capacities"),
 }
 
 # runs an example as __main__, then reports which modules it loaded

@@ -138,5 +138,8 @@ def test_every_module_is_listed():
                  "repro_torch.train.fault", "repro_torch.launch.supervise",
                  "repro_torch.launch.loadgen", "repro_torch.launch.router",
                  "repro_torch.launch.env", "repro_torch.core.distributed",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.configs.base",
+                 "repro_torch.configs.tinyllama_1_1b", "repro_torch.models.common",
+                 "repro_torch.models.attention", "repro_torch.models.mlp",
+                 "repro_torch.models.transformer", "repro_torch.launch.serve"):
         assert want in names
