@@ -155,6 +155,33 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      logit gap at the first differing step is within 1e-3 x max |logit|
      (through forward on the card); the smallest such gap is printed, and
      any other divergence fails.  No frontier kernel launches in phase 10.
+ 11. the other LM families in float32, TF32 off, after phase 10, each part
+     printing its parameters (count, GB, weight-read bound per step over
+     3.35 TB/s), one line per served run (as 10b, with
+     max_memory_allocated), the device busy share of a short C=4 mix, and
+     its seconds: (11a) mamba2-780m at full width and depth (48 stacked
+     SSD layers), weights drawn on the host: a 320-token forward (two
+     SSD chunks) on the card against the host's, teacher-forced
+     serve_step against it; 8 requests (default_rng(1), prompts 8-32,
+     8-24 new tokens) at C=4 twice (identical tokens) and at C=1; the two
+     shortest at C=2 on the host, held against the card's C=2 run;
+     (11b) recurrentgemma-2b at full width and depth (26 layers,
+     rec/rec/attn), drawn on the card: teacher-forced decode against
+     forward on 64 tokens, the 8 requests at C=4 twice and at C=1;
+     (11c) deepseek-v2-236b at full width (MLA, 160 routed experts top-6
+     plus 2 shared), depth cut to 2 stacked layers, drawn on the card:
+     at capacity_factor = n_experts (no assignment dropped) decode
+     against forward, the 8 requests at C=1 and C=8, 4 of them against
+     a no-cache greedy forward; at the config's 1.25 the 8 requests at
+     C=8, printing how many differ; (11d) whisper-base at full width and
+     depth, drawn on the host: encode of 1,500 seeded frames and a
+     32-token forward on the card against the host, decode against
+     forward with enc_out = encode(frames), the 8 requests at C=1 and
+     C=4.  The C=1 and C=4 streams of 11a and 11b, and 11c's at 1.25,
+     legitimately differ: the reference server's recurrent state and
+     shared MoE capacity (ROADMAP.md §3).  Near-tie rule as phase 10's,
+     with the gap read from the reference server's own logits at the
+     first differing step.  No frontier kernel launches in phase 11.
 Every cuda path of phases 2-8 runs with the kernel's launch counts set to
 0 just before it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
@@ -2412,20 +2439,8 @@ class LMCheck:
         return float((top[0] - top[1]) / row.abs().max())
 
     def same(self, what: str, prompt, a, b) -> bool:
-        a, b = list(map(int, a)), list(map(int, b))
-        if len(a) != len(b):
-            fail(f"{what}: {len(a)} tokens against {len(b)}")
-        if a == b:
-            return True
-        i = next(j for j in range(len(a)) if a[j] != b[j])
-        gap = self.rel_gap(self.logits(list(prompt) + a[:i])[-1])
-        if gap > LM_TIE:
-            fail(f"{what}: streams differ at step {i} ({a[i]} against {b[i]}) where the "
-                 f"reference's top-2 gap is {gap:.3e} of max |logit| (> {LM_TIE})")
-        self.diverged.append(gap)
-        print(f"  {what}: streams differ at step {i} of {len(a)}, a near tie "
-              f"(top-2 gap {gap:.3e} of max |logit|)", flush=True)
-        return False
+        return near_tie(what, a, b, lambda i: self.rel_gap(
+            self.logits(list(map(int, prompt)) + list(map(int, a[:i])))[-1]), self.diverged)
 
     def greedy(self, what: str, prompt, got) -> float:
         """Hold ``got`` against a no-cache greedy decode through forward;
@@ -2452,14 +2467,19 @@ def lm_requests(rng, n: int, vocab: int, plens, news) -> list:
             for rid in range(n)]
 
 
-def lm_serve(cfg, params, reqs, **kw):
+def lm_serve(cfg, params, reqs, device="cuda", gaps=None, **kw):
     """Drain ``reqs`` through a fresh SlotServer with the prefill calls
     timed apart (a synchronize around each); returns the server and a
-    dict of wall s, prefill s and prefill tokens."""
+    dict of wall s, prefill s and prefill tokens.  ``device="cpu"`` is
+    for an explicit host reference only.  With a dict ``gaps``, the
+    server's own logits are read at every decode step: ``gaps[rid][i]``
+    is the top-2 gap over max |logit| of request rid's step i."""
     from repro_torch.launch.serve import Request, SlotServer
 
-    srv = SlotServer(cfg, params, device="cuda", **kw)
+    srv = SlotServer(cfg, params, device=device, **kw)
     t = dict(prefill_s=0.0, prefill_tokens=0)
+    if gaps is not None:
+        capture_gaps(srv, gaps)
     orig = srv._prefill_slot
 
     def timed(slot, prompt):
@@ -2477,6 +2497,52 @@ def lm_serve(cfg, params, reqs, **kw):
     return srv, t
 
 
+def near_tie(what: str, a, b, gap_at, seen: list) -> bool:
+    """Hold two token streams of one request to the near-tie rule: they may
+    differ only where ``gap_at(i)``, the reference's top-2 logit gap over
+    its max |logit| at the first differing step i (``a`` is the
+    reference's stream), is within LM_TIE.  Appends that gap to ``seen``."""
+    a, b = list(map(int, a)), list(map(int, b))
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} tokens against {len(b)}")
+    if a == b:
+        return True
+    i = next(j for j in range(len(a)) if a[j] != b[j])
+    gap = gap_at(i)
+    if gap > LM_TIE:
+        fail(f"{what}: streams differ at step {i} ({a[i]} against {b[i]}) where the "
+             f"reference's top-2 gap is {gap:.3e} of max |logit| (> {LM_TIE})")
+    seen.append(gap)
+    print(f"  {what}: streams differ at step {i} of {len(a)}, a near tie "
+          f"(top-2 gap {gap:.3e} of max |logit|)", flush=True)
+    return False
+
+
+def capture_gaps(srv, gaps: dict) -> None:
+    """Wrap ``srv``'s step and round so that each decode step's logits (the
+    last step of a round) leave, per live slot, the relative top-2 gap of
+    that slot's row in ``gaps[rid]``: the reference for the near-tie rule
+    where a greedy forward cannot reproduce the server's own state."""
+    from repro_torch.core.runtime import to_numpy
+
+    step, round_ = srv._step, srv.slot_round
+    last = {}
+
+    def logged_step(tokens, pos):
+        last["logits"] = step(tokens, pos)
+        return last["logits"]
+
+    def logged_round(admitted):
+        out = round_(admitted)
+        top = torch.topk(last["logits"], 2, dim=-1).values
+        rel = to_numpy((top[:, 0] - top[:, 1]) / last["logits"].abs().amax(-1))
+        for slot in np.flatnonzero(srv.runtime.live):
+            gaps.setdefault(srv._slot_req[slot].rid, []).append(float(rel[slot]))
+        return out
+
+    srv._step, srv.slot_round = logged_step, logged_round
+
+
 def lm_line(tag: str, srv, t: dict) -> str:
     st = srv.stats
     decode_s = t["wall_s"] - t["prefill_s"]
@@ -2488,38 +2554,55 @@ def lm_line(tag: str, srv, t: dict) -> str:
             f"{1e3 * t['prefill_s'] / max(t['prefill_tokens'], 1):.3f} ms per prefill token")
 
 
-def lm_forward_checks(tag: str, cfg, params, host=None):
+def lm_forward_checks(tag: str, cfg, params, host=None, length: int = 32):
     """The card's forward against the host's (when given), and teacher-forced
-    serve_step against the card's forward, on one 32-token prompt."""
+    serve_step against the card's forward, on one ``length``-token prompt.
+    Audio also encodes 1 x ``encoder_seq`` seeded frames (card against
+    host), forwards with them and decodes against their encoding."""
     from repro_torch.models import transformer as T
 
     rng = np.random.default_rng(5)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 32), dtype=np.int32))
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, length), dtype=np.int32))
+    batch = {"tokens": prompt}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    on_card = {k: v.cuda() for k, v in batch.items()}
     with torch.no_grad():
-        (full,), dt = sync_time(lambda: T.forward(params, cfg, {"tokens": prompt.cuda()}))
+        (full,), dt = sync_time(lambda: T.forward(params, cfg, on_card))
         scale = float(full.abs().max())
+        enc = None
+        if cfg.family == "audio":
+            enc = T.encode(params, cfg, on_card["frames"])
         if host is not None:
-            t0 = time.perf_counter()
-            want = T.forward(host, cfg, {"tokens": prompt})[0]
-            err = float((full.cpu() - want).abs().max())
-            print(f"  {tag}: forward on the card against the host (float32, CPU, "
-                  f"{time.perf_counter() - t0:.1f} s): max |d| {err:.3e}, "
-                  f"max |logit| {float(want.abs().max()):.4f}", flush=True)
-            if not err <= LM_TIE * float(want.abs().max()):
-                fail(f"{tag}: the card's forward is {err:.3e} from the host's")
-        cache = T.init_cache(cfg, 1, 32, dtype=torch.float32, device="cuda")
+            held = [("forward", full, lambda: T.forward(host, cfg, batch)[0])]
+            if enc is not None:
+                held.append(("encode", enc, lambda: T.encode(host, cfg, batch["frames"])))
+            for what, got, ref in held:
+                t0 = time.perf_counter()
+                want = ref()
+                err = float((got.cpu() - want).abs().max())
+                big = float(want.abs().max())
+                print(f"  {tag}: {what} on the card against the host (float32, CPU, "
+                      f"{time.perf_counter() - t0:.1f} s): max |d| {err:.3e}, "
+                      f"largest magnitude {big:.4f}", flush=True)
+                if not err <= LM_TIE * big:
+                    fail(f"{tag}: the card's {what} is {err:.3e} from the host's")
+        cache = T.init_cache(cfg, 1, length, dtype=torch.float32, device="cuda")
+        if enc is not None:
+            cache["enc_out"].copy_(enc)
         steps = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(32):
-            logits, cache = T.serve_step(params, cfg, cache, prompt[:, i:i + 1].cuda(),
+        for i in range(length):
+            logits, cache = T.serve_step(params, cfg, cache, on_card["tokens"][:, i:i + 1],
                                          torch.full((1,), i, dtype=torch.int32, device="cuda"))
             steps.append(logits[0])
         torch.cuda.synchronize()
-        step_ms = 1e3 * (time.perf_counter() - t0) / 32
+        step_ms = 1e3 * (time.perf_counter() - t0) / length
         err = float((torch.stack(steps) - full).abs().max())
     print(f"  {tag}: teacher-forced serve_step against forward: max |d| {err:.3e}, "
-          f"max |logit| {scale:.4f}; forward of 32 tokens {1e3 * dt:.2f} ms, "
+          f"max |logit| {scale:.4f}; forward of {length} tokens {1e3 * dt:.2f} ms, "
           f"a C=1 step {step_ms:.3f} ms", flush=True)
     if not err <= LM_TIE * scale:
         fail(f"{tag}: teacher-forced decode is {err:.3e} from forward")
@@ -2691,6 +2774,217 @@ def phase_lm() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 11
+FAM_C, FAM_MAX_LEN, FAM_REQUESTS = 4, 64, 8  # 11a, 11b, 11d: slot table and load
+FAM_PROMPT, FAM_NEW = (8, 32), (8, 24)       # drawn from default_rng(1), as 10c
+MAMBA_PROMPT = 320     # 11a: two SSD chunks of 256, so the inter-chunk recurrence runs
+REC_PROMPT = 64        # 11b's teacher-forced prompt
+DEEPSEEK_LAYERS = 2    # 11c: deepseek-v2-236b's depth, cut from 60 (stacked)
+DEEPSEEK_C = 8
+DEEPSEEK_REF = 4       # 11c requests held against a no-cache greedy forward
+
+
+def fam_model(tag: str, cfg, on: str):
+    """Draw ``cfg``'s float32 parameters from a seeded generator, on the
+    host (``on="host"``: returned too, as the reference's copy) or on the
+    card; print their count, GB and weight-read bound per step."""
+    from repro_torch.core.runtime import tree_leaves, tree_map
+    from repro_torch.models import transformer as T
+
+    host = None
+    if on == "host":
+        t0 = time.perf_counter()
+        host = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        init_s = time.perf_counter() - t0
+        params, copy_s = sync_time(lambda: tree_map(lambda x: x.cuda(), host))
+        where = f"drawn on the host in {init_s:.1f} s, copied in {copy_s:.1f} s"
+    else:
+        params, init_s = sync_time(lambda: T.init_params(
+            cfg, torch.Generator("cuda").manual_seed(0), device="cuda"))
+        where = f"drawn on the card in {init_s:.1f} s"
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"  {tag}: {cfg.name} float32, {cfg.n_layers} layers ({T.n_stacked(cfg)} "
+          f"stacked super-blocks), d {cfg.d_model}, vocab {cfg.vocab}: {n:,} parameters "
+          f"({4 * n / 1e9:.2f} GB) {where}; weight-read bound per step "
+          f"{1e3 * 4 * n / HBM_BYTES_PER_S:.3f} ms (float32 bytes over 3.35 TB/s)",
+          flush=True)
+    return params, host
+
+
+def fam_run(tag: str, cfg, params, reqs, capacity: int, gaps=None, **kw):
+    """Serve ``reqs`` on the card at ``capacity`` and print its line with
+    the peak memory; every request must finish with its max_new_tokens."""
+    torch.cuda.reset_peak_memory_stats()
+    srv, t = lm_serve(cfg, params, reqs, capacity=capacity, gaps=gaps, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {tag} {lm_line(f'C={capacity}', srv, t)}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if srv.stats.requests_done != len(reqs) or any(
+            len(srv.results[r.rid]) != r.max_new_tokens for r in reqs):
+        fail(f"{tag} C={capacity}: a request did not finish with its max_new_tokens")
+    return srv
+
+
+def identical(tag: str, a, b, reqs) -> None:
+    """Two runs of one server configuration must give the same tokens."""
+    bad = [r.rid for r in reqs if a.results[r.rid].tolist() != b.results[r.rid].tolist()]
+    if bad:
+        fail(f"{tag}: a repeated run changed the tokens of requests {bad}")
+    print(f"  {tag}: the repeated run gave identical tokens on all {len(reqs)} requests",
+          flush=True)
+
+
+def differing(a, b, reqs) -> int:
+    return sum(a.results[r.rid].tolist() != b.results[r.rid].tolist() for r in reqs)
+
+
+def fam_busy(tag: str, cfg, params) -> None:
+    """Device busy share on a short C=4 mix: 4 requests of 2 + 4 tokens, 12
+    table-wide steps (the profiler took 24 s over 21 of mamba2's steps)."""
+    short = lm_requests(np.random.default_rng(3), FAM_C, cfg.vocab, (2, 2), (4, 4))
+    _, ts = lm_serve(cfg, params, short, capacity=FAM_C, max_len=FAM_MAX_LEN)
+    device_breakdown(lambda: lm_serve(cfg, params, short, capacity=FAM_C,
+                                      max_len=FAM_MAX_LEN),
+                     ts["wall_s"], f"{tag} C={FAM_C}, {FAM_C} requests of 2 + 4 tokens",
+                     kernel="gemm")
+
+
+def fam_mamba2() -> list:
+    """11a: mamba2-780m at full width and depth (48 stacked SSD layers)."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("mamba2-780m"), dtype="float32")
+    params, host = fam_model("11a", cfg, "host")
+    lm_forward_checks("11a", cfg, params, host, length=MAMBA_PROMPT)
+    reqs = lm_requests(np.random.default_rng(1), FAM_REQUESTS, cfg.vocab, FAM_PROMPT, FAM_NEW)
+    s4 = fam_run("11a", cfg, params, reqs, FAM_C, max_len=FAM_MAX_LEN)
+    identical("11a C=4", s4, fam_run("11a", cfg, params, reqs, FAM_C, max_len=FAM_MAX_LEN),
+              reqs)
+    s1 = fam_run("11a", cfg, params, reqs, 1, max_len=FAM_MAX_LEN)
+    print(f"  11a: {differing(s1, s4, reqs)} of {len(reqs)} requests differ between C=1 and "
+          f"C={FAM_C} (the reference server's recurrent state takes in other slots' "
+          "prefill steps; ROADMAP.md §3)", flush=True)
+    fam_busy("11a", cfg, params)
+    # the only independent check of the card's server: the two shortest
+    # requests at C=2 through a SlotServer on the host, from the host copy
+    pair = sorted(reqs, key=lambda r: len(r.prompt) + r.max_new_tokens)[:2]
+    card2 = fam_run("11a", cfg, params, pair, 2, max_len=FAM_MAX_LEN)
+    gaps, seen = {}, []
+    t0 = time.perf_counter()
+    host2, _ = lm_serve(cfg, host, pair, device="cpu", gaps=gaps, capacity=2,
+                        max_len=FAM_MAX_LEN)
+    same = sum(near_tie(f"11a request {r.rid}, the card's C=2 against the host's",
+                        host2.results[r.rid], card2.results[r.rid],
+                        gaps[r.rid].__getitem__, seen) for r in pair)
+    print(f"  11a: requests {[r.rid for r in pair]} at C=2 on the host ({host2.stats.rounds} "
+          f"rounds, {time.perf_counter() - t0:.1f} s): {same} of 2 identical to the card's",
+          flush=True)
+    return seen
+
+
+def fam_recurrentgemma() -> list:
+    """11b: recurrentgemma-2b at full width and depth (26 unrolled layers,
+    rec/rec/attn), drawn on the card."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b"), dtype="float32")
+    params, _ = fam_model("11b", cfg, "card")
+    lm_forward_checks("11b", cfg, params, length=REC_PROMPT)
+    reqs = lm_requests(np.random.default_rng(1), FAM_REQUESTS, cfg.vocab, FAM_PROMPT, FAM_NEW)
+    s4 = fam_run("11b", cfg, params, reqs, FAM_C, max_len=FAM_MAX_LEN)
+    identical("11b C=4", s4, fam_run("11b", cfg, params, reqs, FAM_C, max_len=FAM_MAX_LEN),
+              reqs)
+    s1 = fam_run("11b", cfg, params, reqs, 1, max_len=FAM_MAX_LEN)
+    print(f"  11b: {differing(s1, s4, reqs)} of {len(reqs)} requests differ between C=1 and "
+          f"C={FAM_C} (the reference server's recurrent state; ROADMAP.md §3)", flush=True)
+    fam_busy("11b", cfg, params)
+    return []
+
+
+def fam_deepseek() -> list:
+    """11c: deepseek-v2-236b at full width (MLA, 160 routed experts top-6 +
+    2 shared), depth cut to DEEPSEEK_LAYERS, drawn on the card."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("deepseek-v2-236b"), dtype="float32",
+                              n_layers=DEEPSEEK_LAYERS)
+    params, _ = fam_model("11c", cfg, "card")
+    # the checks run where no assignment is dropped, as JAX's decode ==
+    # prefill test does: a request's tokens then depend on nothing else
+    every = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    print(f"  11c: checks at capacity_factor {every.capacity_factor} (n_experts); the "
+          f"config's own is {cfg.capacity_factor}", flush=True)
+    lm_forward_checks("11c", every, params)
+    reqs = lm_requests(np.random.default_rng(1), FAM_REQUESTS, cfg.vocab, FAM_PROMPT, FAM_NEW)
+    gaps, seen = {}, []
+    s1 = fam_run("11c every", every, params, reqs, 1, gaps=gaps, max_len=FAM_MAX_LEN)
+    s8 = fam_run("11c every", every, params, reqs, DEEPSEEK_C, max_len=FAM_MAX_LEN)
+    same = sum(near_tie(f"11c request {r.rid}, C=1 against C={DEEPSEEK_C}",
+                        s1.results[r.rid], s8.results[r.rid],
+                        gaps[r.rid].__getitem__, seen) for r in reqs)
+    print(f"  11c: {same} of {len(reqs)} requests identical at C=1 and C={DEEPSEEK_C}",
+          flush=True)
+    chk = LMCheck(every, params)
+    smallest = min(chk.greedy(f"11c request {r.rid} against greedy forward", r.prompt,
+                              s8.results[r.rid]) for r in reqs[:DEEPSEEK_REF])
+    print(f"  11c: {DEEPSEEK_REF} requests against a no-cache greedy forward on the card: "
+          f"smallest top-2 gap along the references {smallest:.3e} of max |logit|", flush=True)
+    own = fam_run("11c own", cfg, params, reqs, DEEPSEEK_C, max_len=FAM_MAX_LEN)
+    print(f"  11c: at capacity_factor {cfg.capacity_factor}, {differing(own, s8, reqs)} of "
+          f"{len(reqs)} requests differ from the n_experts run (capacity "
+          f"ceil({DEEPSEEK_C} x {cfg.experts_per_token} / {cfg.n_experts} x "
+          f"{cfg.capacity_factor}) = "
+          f"{math.ceil(DEEPSEEK_C * cfg.experts_per_token / cfg.n_experts * cfg.capacity_factor)}"
+          " per expert per step, shared by the slots; ROADMAP.md §3)", flush=True)
+    fam_busy("11c own", cfg, params)
+    return seen + chk.diverged
+
+
+def fam_whisper() -> list:
+    """11d: whisper-base at full width and depth (6 + 6 layers, 1,500
+    frames), drawn on the host."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("whisper-base"), dtype="float32")
+    params, host = fam_model("11d", cfg, "host")
+    lm_forward_checks("11d", cfg, params, host)
+    reqs = lm_requests(np.random.default_rng(1), FAM_REQUESTS, cfg.vocab, FAM_PROMPT, FAM_NEW)
+    gaps, seen = {}, []
+    s1 = fam_run("11d", cfg, params, reqs, 1, gaps=gaps, max_len=FAM_MAX_LEN)
+    s4 = fam_run("11d", cfg, params, reqs, FAM_C, max_len=FAM_MAX_LEN)
+    same = sum(near_tie(f"11d request {r.rid}, C=1 against C={FAM_C}", s1.results[r.rid],
+                        s4.results[r.rid], gaps[r.rid].__getitem__, seen) for r in reqs)
+    print(f"  11d: {same} of {len(reqs)} requests identical at C=1 and C={FAM_C} (the "
+          "server's enc_out is zero, as in the reference)", flush=True)
+    fam_busy("11d", cfg, params)
+    return seen
+
+
+def phase_families() -> None:
+    """Phase 11: the other LM families on the card (11a mamba2, 11b
+    recurrentgemma, 11c deepseek-v2 cut to 2 layers, 11d whisper), in
+    float32 with TF32 off.  No frontier kernel launches here."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's default, held
+    take_counts()
+    print("phase 11: the SSD, RG-LRU, MoE + MLA and encoder-decoder families "
+          "(models/{ssm,rglru,mlp,transformer}.py, launch/serve.py), float32", flush=True)
+    gaps = []
+    for name, part in (("11a", fam_mamba2), ("11b", fam_recurrentgemma),
+                       ("11c", fam_deepseek), ("11d", fam_whisper)):
+        t = time.perf_counter()
+        gaps += part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    if take_counts()[0]:
+        fail("phase 11 launched the frontier kernel")
+    where = (f"{len(gaps)} near-tie divergences, smallest gap {min(gaps):.3e}"
+             if gaps else "no held stream diverged")
+    print(f"phase 11: {where}; no frontier kernel launch; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2739,6 +3033,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_lm()
+    phase_families()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))

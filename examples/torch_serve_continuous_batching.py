@@ -2,11 +2,17 @@
 by the slot-table scheduler — continuous batching IS superstep-sharing.
 
 Compares capacity C=1 (one request at a time) with C=8 (shared decode
-rounds): same tokens, far fewer rounds.  The model is a reduced config of
-the architecture with seeded random weights.
+rounds): far fewer rounds, and the same tokens wherever the reference
+server gives them.  It does not for recurrent layers (ssm, hybrid), whose
+state takes in the table-wide prefill steps of other slots, nor for MoE,
+whose capacity the slots of one decode step share (ROADMAP.md §3); for
+those the example prints how many requests differ.  The model is a
+reduced config of the architecture (``--arch``, any of the ten) with
+seeded random weights.
 
 Run:  PYTHONPATH=src python examples/torch_serve_continuous_batching.py            # on a GPU
-      PYTHONPATH=src python examples/torch_serve_continuous_batching.py --device cpu
+      PYTHONPATH=src python examples/torch_serve_continuous_batching.py --device cpu \
+          --arch mamba2-780m
 """
 import argparse
 import time
@@ -65,8 +71,13 @@ def main():
         s1.submit(Request(r.rid, r.prompt, 8))
         s8.submit(Request(r.rid, r.prompt, 8))
     r1, r8 = s1.run_until_drained(), s8.run_until_drained()
-    assert all(np.array_equal(r1[k], r8[k]) for k in r1)
-    print("== outputs identical across capacities")
+    differ = sum(not np.array_equal(r1[k], r8[k]) for k in r1)
+    if cfg.family in ("ssm", "hybrid") or cfg.n_experts:
+        print(f"== {cfg.name}: outputs differ across capacities on {differ} of {len(r1)} "
+              "requests (the reference server's shared recurrent state or MoE capacity)")
+    else:
+        assert not differ
+        print("== outputs identical across capacities")
 
     # schedulers ride the shared SlotRuntime: sjf admits the shortest
     # declared jobs first; over-long prompts are REJECTED up front

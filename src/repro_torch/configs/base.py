@@ -2,9 +2,8 @@
 
 Every architecture is a selectable config (``--arch <id>``) with its
 published widths; ``reduced`` gives a tiny same-family config for CPU
-tests.  The configs are shapes, not weights: all ten register here,
-though the port's model code serves only the dense and vlm families so
-far (``models/transformer.py``).
+tests.  The configs are shapes, not weights: all ten register here, and
+``models/transformer.py`` runs and serves each of them.
 """
 from __future__ import annotations
 

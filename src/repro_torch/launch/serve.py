@@ -19,6 +19,11 @@ Prefill is the JAX server's: one ``serve_step`` over the whole table per
 prompt token, the admitted slot writing positions 0..L-1 while every
 other slot rewrites token 0 at its ``base_pos`` (the entry the next
 decode step writes again), so every cache entry equals the JAX server's.
+Two latent faults of the JAX server come with it (ROADMAP.md §3): a
+recurrent layer's state (ssm, rec) takes in every such step of every
+slot, and the first decode step's repeat of the last prompt token; and
+a MoE layer's capacity is shared by the C slots that one step routes,
+so a request's tokens depend on what shares its table.
 The cache is float32, as in JAX; a model whose parameters are narrower
 and whose layers are stacked cannot be served there (the stacked loop's
 carry would change dtype), and ``SlotServer`` refuses it.
@@ -83,7 +88,6 @@ class SlotServer(SlotProgram):
                  preemptive: bool = False, preempt_margin: float = 0.0,
                  journal=None, snapshot_every: int = 0, straggler=None,
                  max_retries: int = 2, device=None):
-        T.check_ported(cfg)
         if cfg.dtype != "float32" and T.n_stacked(cfg):
             raise ValueError(
                 f"{cfg.name}: {cfg.dtype} parameters with stacked layers cannot "
@@ -221,17 +225,18 @@ class SlotServer(SlotProgram):
     def _cache_slot_axes(self):
         """Pytree (matching ``self.cache``) of the slot/batch axis per leaf:
         ``blocks`` leaves are stacked over super-blocks by init_cache (axis 0
-        is the stacked layer axis, slots live on axis 1); ``rem_blocks``
-        leaves are slot-leading."""
+        is the stacked layer axis, slots live on axis 1); everything else
+        (``rem_blocks``, ``enc_out``) is slot-leading."""
         axes = tree_map(lambda _: 0, self.cache)
         axes["blocks"] = tree_map(lambda _: 1, self.cache["blocks"])
         return axes
 
     def slot_suspend(self, slots: list[int]) -> list:
-        """Suspend mid-decode: pull each victim's KV-cache rows to host (the
-        JAX payload: numpy rows on the same axes) along with its decode
-        bookkeeping; resuming restores both, so the continued generation
-        is token-identical to an uninterrupted run."""
+        """Suspend mid-decode: pull each victim's cache rows to host (every
+        leaf: keys and values, MLA latents, recurrent and conv states,
+        ``enc_out``; the JAX payload: numpy rows on the same axes) along
+        with its decode bookkeeping; resuming restores both, so the
+        continued generation is token-identical to an uninterrupted run."""
         axes = self._cache_slot_axes()
         payloads = []
         for s in (int(s) for s in slots):

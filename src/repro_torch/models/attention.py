@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.models.common import einsum
 from repro_torch.models.common import softcap as _softcap
 
 NEG_INF = -1e30
@@ -31,12 +32,6 @@ def _chunk_scores(q, k, scale, cap):
     # float32, so this equals JAX's bf16 einsum with f32 accumulation
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     return _softcap(s, cap)
-
-
-def _weighted(eq: str, p, v):
-    """``einsum(eq, p, v)`` in the promoted dtype of ``p`` and ``v``."""
-    dt = torch.promote_types(p.dtype, v.dtype)
-    return torch.einsum(eq, p.to(dt), v.to(dt))
 
 
 def causal_attention(
@@ -75,7 +70,7 @@ def causal_attention(
                 mask &= ones.triu(-local_window + 1)
             s = torch.where(mask, s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        return _weighted("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+        return einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
 
     if S % q_chunk or S % kv_chunk:
         # ragged sequence (e.g. VLM patch-prefix + tokens): pad to the chunk
@@ -154,7 +149,7 @@ def decode_attention(
         mask = mask & (kpos > p5 - local_window)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = _weighted("bkgqs,bskd->bqkgd", p.to(q.dtype), v_cache)
+    o = einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v_cache)
     return o.reshape(B, 1, H, v_cache.shape[-1])
 
 
@@ -170,4 +165,4 @@ def full_attention(q, k, v, *, attn_softcap: float = 0.0, mask=None):
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return _weighted("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+    return einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)

@@ -24,6 +24,13 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ b.to(dt)
 
 
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` in the promoted dtype of both operands, as
+    JAX's ``einsum`` takes mixed dtypes (torch's wants one)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
@@ -82,4 +89,4 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = -2,
     std = 1.0 / math.sqrt(fan_in)
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)  # in place: no second float32 copy

@@ -39,7 +39,11 @@ print(json.dumps({"bad": bad}))
 
 
 def _run(name, args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    # one OpenMP thread: the test workers share the box, and idle OpenMP
+    # threads of concurrent examples spin against each other (six runs of
+    # the deepseek example at once took 195 s with 8 threads, 5 s with 1)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-c", _RUN, str(ROOT / "examples" / name), *args],
                           env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
 
@@ -54,6 +58,24 @@ def test_example_runs_on_the_cpu_when_asked(name):
     out = _run(name, ["--device", "cpu", *args])
     assert out.returncode == 0, out.stderr[-3000:]
     assert line in out.stdout, out.stdout[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": []}
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b", "deepseek-v2-236b",
+                                  "arctic-480b", "whisper-base"])
+def test_serving_example_serves_every_family(arch):
+    """The serving example on the reduced config of each family the dense
+    default does not cover: all requests served at C=1 and C=8, the
+    scheduler line printed; the recurrent and MoE families report their
+    capacity-dependent tokens instead of asserting equality."""
+    out = _run("torch_serve_continuous_batching.py",
+               ["--device", "cpu", "--arch", arch, "--requests", "4"])
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("tokens for 4 requests") == 2, out.stdout[-3000:]
+    assert "sjf statuses" in out.stdout
+    shares = arch != "whisper-base"
+    assert ("outputs differ across capacities" in out.stdout) == shares, out.stdout[-3000:]
+    assert ("outputs identical across capacities" in out.stdout) != shares
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": []}
 
 

@@ -141,5 +141,6 @@ def test_every_module_is_listed():
                  "repro_torch.launch.mesh", "repro_torch.configs.base",
                  "repro_torch.configs.tinyllama_1_1b", "repro_torch.models.common",
                  "repro_torch.models.attention", "repro_torch.models.mlp",
-                 "repro_torch.models.transformer", "repro_torch.launch.serve"):
+                 "repro_torch.models.transformer", "repro_torch.launch.serve",
+                 "repro_torch.models.ssm", "repro_torch.models.rglru"):
         assert want in names

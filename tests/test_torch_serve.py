@@ -30,16 +30,28 @@ from repro_torch.models import transformer as T
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tiny models: the test workers
+    share the box, and torch's idle threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_model(arch: str, dtype: str = "float32"):
     cfg = dataclasses.replace(j_reduced(j_arch(arch)), dtype=dtype)
     return cfg, JT.init_params(cfg, jax.random.PRNGKey(0))
 
 
-def _model(arch: str, dtype: str = "float32"):
-    """(JAX cfg, JAX params, port cfg, the same params as tensors)."""
+def _model(arch: str, dtype: str = "float32", **over):
+    """(JAX cfg, JAX params, port cfg, the same params as tensors); ``over``
+    replaces config fields the parameters do not depend on."""
     jcfg, jp = _jax_model(arch, dtype)
-    cfg = dataclasses.replace(reduced(get_arch(arch)), dtype=dtype)
+    jcfg = dataclasses.replace(jcfg, **over)
+    cfg = dataclasses.replace(reduced(get_arch(arch)), dtype=dtype, **over)
     return jcfg, jp, cfg, carry.params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
 
 
@@ -304,10 +316,15 @@ def _mixed(vocab, n, seed, max_len, long_every=0):
     return out
 
 
+SHORT = {"tinyllama": "tinyllama-1.1b", "gemma2": "gemma2-9b", "mamba2": "mamba2-780m",
+         "recurrentgemma": "recurrentgemma-2b", "deepseek": "deepseek-v2-236b",
+         "arctic": "arctic-480b", "whisper": "whisper-base"}
+
+
 # name -> (arch, server options, requests, {round: requests submitted after it},
 #          suspend every other round)
 def _scenario(name):
-    arch = "gemma2-9b" if name.startswith("gemma2") else "tinyllama-1.1b"
+    arch = SHORT[name.split("-")[0]]
     vocab = 256
     every = 2 if arch == "gemma2-9b" else 0
     reqs = _mixed(vocab, 8, seed=len(name), max_len=48, long_every=every)
@@ -323,7 +340,9 @@ def _scenario(name):
 
 
 SCENARIOS = [f"{a}-{m}" for a in ("tinyllama", "gemma2")
-             for m in ("fifo", "sjf", "preemptive-sjf", "suspend")]
+             for m in ("fifo", "sjf", "preemptive-sjf", "suspend")] + [
+    f"{a}-fifo" for a in ("mamba2", "recurrentgemma", "deepseek", "arctic", "whisper")] + [
+    "mamba2-suspend", "deepseek-suspend"]
 
 
 def _drive(server, request, reqs, late, suspend):
@@ -349,7 +368,10 @@ def _drive(server, request, reqs, late, suspend):
 def test_server_matches_jax(name):
     """fifo, sjf, preemptive sjf and every-other-round suspension, on reduced
     tinyllama (stacked layers) and reduced gemma2 (local/global, unrolled)
-    with max_len 48, so that gemma2's 32-position local ring wraps."""
+    with max_len 48, so that gemma2's 32-position local ring wraps; fifo on
+    the other five families (SSD and MoE + MLA stacked, RG-LRU and whisper
+    unrolled), and suspension on mamba2 and deepseek, whose payloads carry
+    the ``state``/``conv`` and ``ckv``/``krope`` rows."""
     arch, kw, reqs, late, suspend = _scenario(name)
     jcfg, jp, cfg, tp = _model(arch)
     jsrv = JServer(jcfg, jp, **kw)
@@ -412,6 +434,94 @@ def test_ring_rewrite_at_admission_matches_jax():
     first_off = _jax_greedy_agrees(jcfg, jp, long_p, out["port"][0])
     assert 0 < first_off < 16
     assert _jax_greedy_agrees(jcfg, jp, long_p, out["alone"][0]) == 16
+
+
+def _both_servers(arch, reqs, C, **over):
+    """The JAX server's and the port's tokens for ``reqs`` at capacity C
+    (max_len 48, fifo), each as {rid: list}."""
+    jcfg, jp, cfg, tp = _model(arch, **over)
+    out = []
+    for srv, req in ((JServer(jcfg, jp, capacity=C, max_len=48), JRequest),
+                     (SlotServer(cfg, tp, capacity=C, max_len=48, device="cpu"), Request)):
+        _drive(srv, req, reqs, {}, suspend=False)
+        out.append({r: np.asarray(v).tolist() for r, v in srv.results.items()})
+    return out
+
+
+def _five(seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rid, rng.integers(0, 256, int(rng.integers(3, 9)), dtype=np.int32),
+             dict(max_new_tokens=6)) for rid in range(5)]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
+def test_recurrent_state_absorbs_other_slots_matches_jax(arch):
+    """A latent JAX fault, kept because JAX is the reference: prefill runs
+    one table-wide step per prompt token, and every other slot's SSD or
+    RG-LRU state takes in its token-0 step; the first decode step feeds
+    the last prompt token again.  So a request's tokens depend on the
+    capacity, and even at C=1 they leave JAX's greedy forward.  The
+    port's tokens equal the JAX server's at C=1 and C=4."""
+    reqs = _five()
+    jax1, port1 = _both_servers(arch, reqs, 1)
+    jax4, port4 = _both_servers(arch, reqs, 4)
+    assert port1 == jax1 and port4 == jax4
+    assert any(jax1[r] != jax4[r] for r in jax1)
+    jcfg, jp = _jax_model(arch)
+    assert any(_jax_greedy_agrees(jcfg, jp, prompt, jax1[rid]) < len(jax1[rid])
+               for rid, prompt, _ in reqs)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b"])
+def test_moe_capacity_shared_across_slots_matches_jax(arch):
+    """A latent JAX fault, kept because JAX is the reference: a decode step
+    routes its C slots as one batch of C tokens with capacity
+    ceil(C*K/E * 1.25), so what shares a request's table can drop its
+    assignments, and its tokens depend on the capacity.  The port's
+    tokens equal the JAX server's at C=1 and C=4; under
+    ``capacity_factor = n_experts`` nothing drops and the two agree."""
+    reqs = _five()
+    jax1, port1 = _both_servers(arch, reqs, 1)
+    jax4, port4 = _both_servers(arch, reqs, 4)
+    assert port1 == jax1 and port4 == jax4
+    assert any(jax1[r] != jax4[r] for r in jax1)
+    every = float(reduced(get_arch(arch)).n_experts)
+    jax1, port1 = _both_servers(arch, reqs, 1, capacity_factor=every)
+    jax4, port4 = _both_servers(arch, reqs, 4, capacity_factor=every)
+    assert port1 == jax1 == port4 == jax4
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b", "deepseek-v2-236b",
+                                  "arctic-480b", "whisper-base"])
+def test_jax_payload_resumes_in_the_port(arch):
+    """A JAX slot suspended after 3 rounds: its payload's cache rows (SSD
+    or RG-LRU states and conv inputs, MLA latents, whisper's ``enc_out``)
+    equal the port's on the same axes, and, carried over with
+    ``carry.cache_from_numpy``, resume in the port to the JAX server's
+    tokens."""
+    jcfg, jp, cfg, tp = _model(arch)
+    prompt = np.random.default_rng(29).integers(0, cfg.vocab, 6, dtype=np.int32)
+    jsrv = JServer(jcfg, jp, capacity=2, max_len=32)
+    tsrv = SlotServer(cfg, tp, capacity=2, max_len=32, device="cpu")
+    for srv, req in ((jsrv, JRequest), (tsrv, Request)):
+        srv.submit(req(0, prompt, max_new_tokens=10))
+        for _ in range(3):
+            srv.run_round()
+    slot = [int(np.flatnonzero(jsrv.runtime.live)[0])]
+    jpay, tpay = jsrv.slot_suspend(slot)[0], tsrv.slot_suspend(slot)[0]
+    want, got = jax.tree.leaves(jpay["cache"]), tree_leaves(tpay["cache"])
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+    ref = JServer(jcfg, jp, capacity=2, max_len=32)
+    ref.submit(JRequest(0, prompt, max_new_tokens=10))
+    fresh = SlotServer(cfg, tp, capacity=2, max_len=32, device="cpu")
+    carried = dict(jpay, cache=carry.cache_from_numpy(
+        jax.tree.map(np.asarray, jpay["cache"]), device="cpu"))
+    fresh.runtime.restore_pending(0, Request(0, prompt, max_new_tokens=10),
+                                  payload=carried, steps_done=3)
+    assert fresh.run_until_drained()[0].tolist() == \
+        np.asarray(ref.run_until_drained()[0]).tolist()
 
 
 def test_bf16_served_only_where_jax_serves():
