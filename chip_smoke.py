@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path, its other query classes and
-its LM server on one GPU and hold its kernel against the plain PyTorch
-version.
+"""Drive the PyTorch/CUDA port's main path, its other query classes, its
+LM server and its LM trainer on one GPU and hold its kernel against the
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -182,6 +182,32 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      shared MoE capacity (ROADMAP.md §3).  Near-tie rule as phase 10's,
      with the gap read from the reference server's own logits at the
      first differing step.  No frontier kernel launches in phase 11.
+ 12. LM training (train/*, models/* backward, launch/train.py), TF32 off:
+     (12a) TinyLlama-1.1B at full width and depth in its own bfloat16
+     with bf16 moments, drawn on the card: make_train_step(n_micro=2)
+     with remat, OptConfig(warmup_steps=2, total_steps=12), synthetic
+     batches of 8 x 2,048 tokens through the prefetch thread, 2 warm-up
+     and 10 timed steps: loss, grad norm and lr per step (finite, the
+     parameters move, the loss trend DOWN or flat as the JAX driver
+     prints it), ms per step, tokens/s, mfu (6 N + 12 L S d model FLOPs a
+     token, remat's recompute not counted, over 989.4 TFLOP/s bf16 dense),
+     max_memory_allocated, and the device busy and GEMM shares of 2
+     profiled steps; (12b) TinyLlama's width cut to 2 layers (153.6 M
+     parameters) in float32, drawn on the host: one step of 2 x 256
+     tokens (n_micro 2) on the card against the host, plain and with int8
+     compression (loss and grad norm within 1e-4; parameters, moments
+     and residuals by tests/_torch_train.py's rule); (12c) every arch at
+     reduced size, 2 x 64 tokens, card against host by the same rule: the
+     MoE's index_put_ backward, the SSD einsums, the RG-LRU loop and the
+     encoder run backward on CUDA; (12d) `python -m
+     repro_torch.launch.train --device cuda` with examples/train_lm.py's
+     arguments (its last line "finished at step 30 with 1 restart(s)"),
+     then tests/test_train.py's drill (tinyllama reduced, 8 steps, a
+     failure at 5, checkpoints every 2) in a child (`chip_smoke.py
+     --train-drill OUT`, CUBLAS_WORKSPACE_CONFIG=:4096:8, deterministic
+     algorithms on before its first CUDA call): the restarted run's final
+     parameters bit-identical to the clean run's.  No frontier kernel
+     launches in phase 12.
 Every cuda path of phases 2-8 runs with the kernel's launch counts set to
 0 just before it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
@@ -2985,6 +3011,331 @@ def phase_families() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 12
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048  # 12a: 16,384 tokens a step, TinyLlama's pretraining context
+TRAIN_MICRO = 2                   # 12a-12c: microbatches a step
+TRAIN_WARM, TRAIN_TIMED = 2, 10   # 12a: warm-up and timed steps
+TRAIN_PROFILED = 2                # 12a: steps under the profiler
+BF16_PEAK = 989.4e12              # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA datasheet)
+HOST_LAYERS = 2                   # 12b: TinyLlama's width, depth cut from 22
+HOST_BATCH, HOST_SEQ = 2, 256     # 12b: the batch stepped on the card and on the host
+FAMILY_SEQ = 64                   # 12c: past the reduced configs' 16-token chunks
+DRILL_STEPS, DRILL_FAIL, DRILL_EVERY = 8, 5, 2  # 12d: tests/test_train.py's drill
+TRAIN_CLI = ["--arch", "gemma2-9b", "--steps", "30", "--batch", "8", "--seq", "64",
+             "--n-micro", "2", "--ckpt-every", "10", "--fail-at", "17"]  # examples/train_lm.py
+
+
+def same_step(tag: str, got, want) -> str:
+    """Hold the card's step ``got`` against the host's ``want`` (both
+    (params, opt_state, metrics)) by the rule of
+    tests/_torch_train.py::assert_step_matches: loss and gradient norm
+    within 1e-4 relative.  g is the gradient the host's AdamW received,
+    read back from its first moment (step 1 from zero moments: mu =
+    (1 - b1) * clip * g).  Moments within one bf16 ulp plus what a
+    gradient difference of 1e-4 * |g| + 1e-6 moves them; under int8
+    compression an element at a rounding tie may land one level apart
+    (moments and residual one level of its tensor's scale apart), at most
+    0.1 % of them.  Parameters within 1e-4 of their value or of lr (a new
+    parameter near 0 is the difference of p and lr * delta) where
+    |g| > 1e-5, both first moments have one nonzero sign and no level
+    differs; else within 2 * lr (step 1's update is ~ lr * g / |g|).
+    Returns a summary for the part's line."""
+    from repro_torch.core.runtime import tree_leaves
+    from repro_torch.train.optimizer import OptConfig
+
+    b1, b2 = OptConfig().betas
+    (params, opt, m), (wp, wo, wm) = got, want
+    loss, wloss = float(m["loss"]), float(wm["loss"])
+    gn, wgn = float(m["grad_norm"]), float(wm["grad_norm"])
+    if not (abs(loss - wloss) <= 1e-4 * abs(wloss) and abs(gn - wgn) <= 1e-4 * abs(wgn)):
+        fail(f"{tag}: loss {loss} / {wloss}, grad norm {gn} / {wgn} (card / host)")
+    if int(opt["step"]) != int(wo["step"]) or sorted(opt) != sorted(wo):
+        fail(f"{tag}: optimizer state {sorted(opt)} step {int(opt['step'])}")
+    lr = float(wm["lr"])
+    clip = min(1.0, OptConfig().grad_clip / (wgn + 1e-9))
+
+    def ulp(x):
+        return torch.where(x != 0, torch.abs(x) * 2.0 ** -7, 2.0 ** -133)
+
+    f = lambda t: t.detach().float().cpu()
+    errs = zip(tree_leaves(opt["err"]), tree_leaves(wo["err"])) if "err" in wo else None
+    worst = 0.0
+    n_level = n_ulp = n_steady = n_all = 0
+    for i, (p, q, mu, wmu, nu, wnu) in enumerate(zip(
+            tree_leaves(params), tree_leaves(wp), tree_leaves(opt["mu"]),
+            tree_leaves(wo["mu"]), tree_leaves(opt["nu"]), tree_leaves(wo["nu"]))):
+        p, q, mu, wmu, nu, wnu = map(f, (p, q, mu, wmu, nu, wnu))
+        g = wmu / ((1 - b1) * clip)
+        dg = 1e-4 * g.abs() + 1e-6
+        dm, dv = (mu - wmu).abs(), (nu - wnu).abs()
+
+        def lims(d):
+            return (ulp(wmu) + (1 - b1) * clip * d,
+                    ulp(wnu) + (1 - b2) * clip ** 2 * d * (2 * g.abs() + d))
+
+        m_lim, v_lim = lims(dg)
+        off = torch.zeros_like(g, dtype=torch.bool)
+        if errs is not None:
+            e, we = map(f, next(errs))
+            level = float(g.abs().max()) / 127 * (1 + 2.0 ** -7)
+            off = (dm > m_lim) | (dv > v_lim)
+            m_lim, v_lim = lims(dg + off * level)
+            if bool(((e - we).abs() > dg + 1e-4 * 127 * level + off * level).any()):
+                fail(f"{tag}: leaf {i}: error-feedback residuals apart")
+        if bool((dm > m_lim).any()) or bool((dv > v_lim).any()):
+            fail(f"{tag}: leaf {i}: moments {float(dm.max()):.3e} / {float(dv.max()):.3e} apart")
+        steady = (g.abs() > 1e-5) & (torch.sign(mu) == torch.sign(wmu)) & ~off
+        dp = (p - q).abs()
+        bound = torch.where(steady, 1e-4 * (q.abs() + lr), torch.full_like(q, 2 * lr))
+        if bool((dp > bound).any()):
+            j = int(torch.argmax(dp - bound))
+            fail(f"{tag}: leaf {i} {tuple(q.shape)}: {int((dp > bound).sum())} parameters "
+                 f"over; worst at {j}: card {float(p.flatten()[j])!r}, host "
+                 f"{float(q.flatten()[j])!r}, host g {float(g.flatten()[j])!r}, first "
+                 f"moments {float(mu.flatten()[j])!r} / {float(wmu.flatten()[j])!r}, "
+                 f"clip {clip!r}, lr {lr!r}")
+        if bool(steady.any()):
+            worst = max(worst, float((dp / (q.abs() + lr))[steady].max()))
+        n_level += int(off.sum())
+        n_ulp += int((dm > ulp(wmu)).sum())
+        n_steady += int(steady.sum())
+        n_all += g.numel()
+    if n_level > 1e-3 * n_all:
+        fail(f"{tag}: {n_level} of {n_all} elements one int8 level apart")
+    return (f"loss {loss:.6f} (host {wloss:.6f}), grad norm {gn:.6f} (host {wgn:.6f}); "
+            f"{n_steady:,} of {n_all:,} parameters held to 1e-4 (max |d| / (|p| + lr) "
+            f"{worst:.2e}), the rest to 2 lr; {n_ulp:,} first moments over one bf16 ulp"
+            + (f"; {n_level} elements one int8 level apart" if errs is not None else ""))
+
+
+def card_and_host(tag: str, cfg, compression: bool, seq: int = HOST_SEQ) -> str:
+    """One microbatched train step from the same host-drawn state on the
+    card and on the host; returns ``same_step``'s summary."""
+    from repro_torch.core.runtime import tree_map
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    opt_cfg = OptConfig(warmup_steps=1)
+    host = init_train_state(cfg, opt_cfg, torch.Generator().manual_seed(0),
+                            use_compression=compression, device="cpu")
+    card = tree_map(lambda t: t.cuda(), host)
+    batch = synthetic_batch(cfg, HOST_BATCH, seq, 0, 0)
+    step = make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO, use_compression=compression,
+                           donate=False)
+    got, card_s = sync_time(lambda: step(*card, batch))
+    t0 = time.perf_counter()
+    want = step(*host, batch)
+    host_s = time.perf_counter() - t0
+    return (f"{same_step(tag, got, want)}; step {1e3 * card_s:.1f} ms on the card, "
+            f"{host_s:.2f} s on the host")
+
+
+def train_full() -> None:
+    """12a: TinyLlama-1.1B at full width and depth in its own bfloat16."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import tree_leaves
+    from repro_torch.train.data import Prefetcher, synthetic_stream
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_arch("tinyllama-1.1b")
+    steps = TRAIN_WARM + TRAIN_TIMED
+    opt_cfg = OptConfig(warmup_steps=TRAIN_WARM, total_steps=steps)
+    (params, opt), init_s = sync_time(lambda: init_train_state(
+        cfg, opt_cfg, torch.Generator("cuda").manual_seed(0), device="cuda"))
+    n = sum(x.numel() for x in tree_leaves(params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6 * n + 12 * cfg.n_layers * TRAIN_SEQ * cfg.d_model) * tokens
+    print(f"  12a: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{n:,} parameters drawn on the card in {init_s:.1f} s; {opt_cfg.moment_dtype} "
+          f"moments; batch {TRAIN_BATCH} x {TRAIN_SEQ} ({tokens:,} tokens a step), "
+          f"n_micro {TRAIN_MICRO}, remat; TF32 {torch.backends.cuda.matmul.allow_tf32}",
+          flush=True)
+    step = make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO)
+    probe = [params["embed_embed"][:8].clone(), params["blocks"][0]["wq_colp"][0, :8].clone()]
+    stream = Prefetcher(synthetic_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(steps):
+        batch = next(stream)
+        (params, opt, m), dt = sync_time(lambda: step(params, opt, batch))
+        loss, gn, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        losses.append(loss)
+        times.append(dt)
+        print(f"    step {s}: loss {loss:.4f}, grad norm {gn:.4f}, lr {lr:.3e}, "
+              f"{1e3 * dt:.1f} ms{' (warm-up)' if s < TRAIN_WARM else ''}", flush=True)
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            fail(f"12a: step {s}: loss {loss}, grad norm {gn}")
+    peak = torch.cuda.max_memory_allocated()
+    if torch.equal(probe[0], params["embed_embed"][:8]) or \
+            torch.equal(probe[1], params["blocks"][0]["wq_colp"][0, :8]):
+        fail("12a: the parameters did not move")
+    step_s = statistics.mean(times[TRAIN_WARM:])
+    a, b = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"  12a: {1e3 * step_s:.1f} ms per step (mean of {TRAIN_TIMED}; "
+          f"{1e3 * min(times[TRAIN_WARM:]):.1f}-{1e3 * max(times[TRAIN_WARM:]):.1f}), "
+          f"{tokens / step_s:.1f} tokens/s; mfu {100 * flops / (step_s * BF16_PEAK):.2f} % "
+          f"({flops:.4e} model FLOPs a step: 6 N + 12 L S d per token, remat's recompute "
+          f"not counted, over {BF16_PEAK / 1e12:.1f} TFLOP/s bf16 dense); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; loss {a:.4f} -> {b:.4f} "
+          f"({'DOWN' if b < a else 'flat'})", flush=True)
+    prof = [next(stream) for _ in range(TRAIN_PROFILED)]
+
+    def run_profiled():
+        nonlocal params, opt
+        for batch in prof:
+            params, opt, _ = step(params, opt, batch)
+
+    busy, gemm = device_breakdown(run_profiled, TRAIN_PROFILED * step_s,
+                                  f"12a {TRAIN_PROFILED} steps", kernel="gemm")
+    if busy:
+        print(f"  12a: {100 * gemm / busy:.1f} % of the device time in GEMM kernels "
+              f"(names holding 'gemm')", flush=True)
+
+
+def train_card_host() -> None:
+    """12b: TinyLlama at full width cut to HOST_LAYERS, float32, one step on
+    the card against the host, plain and with int8 compression."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), dtype="float32",
+                              n_layers=HOST_LAYERS)
+    print(f"  12b: {cfg.name} float32 at full width, {HOST_LAYERS} layers, batch "
+          f"{HOST_BATCH} x {HOST_SEQ}, n_micro {TRAIN_MICRO}, drawn on the host", flush=True)
+    for compression in (False, True):
+        what = "int8 compression" if compression else "plain"
+        print(f"  12b {what}: {card_and_host(f'12b {what}', cfg, compression)}", flush=True)
+
+
+def train_families() -> None:
+    """12c: every arch at reduced size, one step of HOST_BATCH x FAMILY_SEQ
+    tokens on the card against the host."""
+    from repro_torch.configs import get_arch, list_archs, reduced
+
+    for arch in list_archs():
+        got = card_and_host(f"12c {arch}", reduced(get_arch(arch)), False, FAMILY_SEQ)
+        print(f"  12c {arch}: {got}", flush=True)
+
+
+def train_drill(out_path: str) -> None:
+    """12d's child (``chip_smoke.py --train-drill OUT``): tests/test_train.py's
+    restart drill on the card under deterministic algorithms: a clean run
+    of DRILL_STEPS steps, and one that fails at DRILL_FAIL and restarts from
+    its checkpoint every DRILL_EVERY steps; writes whether their final
+    parameters are bit-identical."""
+    torch.use_deterministic_algorithms(True)  # before the first CUDA call
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.runtime import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.fault import FailureInjector, run_with_restarts
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = reduced(get_arch("tinyllama-1.1b"))
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=50)
+    t0 = time.perf_counter()
+
+    def train(ckpt_dir=None, injector=None):
+        params, opt = init_train_state(cfg, opt_cfg, torch.Generator().manual_seed(0),
+                                       device="cuda")
+        start = 0
+        if ckpt_dir:
+            state, got = ckpt.restore(ckpt_dir, {"params": params, "opt": opt})
+            if state is not None:
+                params, opt, start = state["params"], state["opt"], got
+        step = make_train_step(cfg, opt_cfg, donate=False)
+        for s in range(start, DRILL_STEPS):
+            if injector:
+                injector.check(s)
+            params, opt, _ = step(params, opt, synthetic_batch(cfg, 4, 16, 7, s))
+            if ckpt_dir and (s + 1) % DRILL_EVERY == 0:
+                ckpt.save(ckpt_dir, s + 1, {"params": params, "opt": opt})
+        return params
+
+    clean = train()
+    d = tempfile.mkdtemp()
+    try:
+        inj = FailureInjector({DRILL_FAIL})
+        final, restarts = run_with_restarts(lambda start: (train(d, inj), DRILL_STEPS)[1],
+                                            lambda: ckpt.latest_step(d))
+        got = train(d)  # restores the last checkpoint, at DRILL_STEPS
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    pairs = list(zip(tree_leaves(got), tree_leaves(clean)))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    with open(out_path, "w") as f:
+        json.dump(dict(identical=all(torch.equal(a, b) for a, b in pairs), max_abs_diff=diff,
+                       final=final, restarts=restarts, leaves=len(pairs),
+                       deterministic=torch.are_deterministic_algorithms_enabled(),
+                       seconds=time.perf_counter() - t0), f)
+
+
+def train_restarts() -> None:
+    """12d: the training CLI on the card with a failure and a restart, then
+    the deterministic restart drill in a child process."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    d = tempfile.mkdtemp()
+    try:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+               *TRAIN_CLI, "--ckpt-dir", d]
+        p, wall = sync_time(lambda: subprocess.run(cmd, capture_output=True, text=True,
+                                                   env=env, timeout=600))
+        for line in p.stdout.strip().splitlines():
+            print(f"    {line}", flush=True)
+        last = p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ""
+        if p.returncode != 0 or last != "[train] finished at step 30 with 1 restart(s)":
+            fail(f"12d: train CLI rc={p.returncode}\n{p.stderr[-3000:]}")
+        print(f"  12d CLI ({' '.join(TRAIN_CLI)}) on cuda: rc 0, {wall:.1f} s with "
+              "start-up", flush=True)
+        out = os.path.join(d, "drill.json")
+        # cuBLAS needs its workspace fixed before its first handle for
+        # deterministic results; this process made its handles long ago
+        p, wall = sync_time(lambda: subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-drill", out],
+            capture_output=True, text=True, timeout=600,
+            env=dict(env, CUBLAS_WORKSPACE_CONFIG=":4096:8")))
+        if p.returncode != 0 or not os.path.exists(out):
+            fail(f"12d: drill rc={p.returncode}\n{p.stderr[-3000:]}")
+        with open(out) as f:
+            r = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"  12d drill (tinyllama reduced, {DRILL_STEPS} steps, a failure at step "
+          f"{DRILL_FAIL}, checkpoints every {DRILL_EVERY}, deterministic algorithms "
+          f"{r['deterministic']}): finished at step {r['final']} with {r['restarts']} "
+          f"restart(s); final parameters of the restarted run "
+          f"{'bit-identical to' if r['identical'] else 'DIFFER from'} the clean run's "
+          f"({r['leaves']} leaves, max |d| {r['max_abs_diff']:.3e}); {r['seconds']:.1f} s "
+          f"in the child, {wall:.1f} s with start-up", flush=True)
+    if not (r["identical"] and r["deterministic"] and r["restarts"] == 1
+            and r["final"] == DRILL_STEPS):
+        fail("12d: the restarted run is not bit-identical to the clean run")
+
+
+def phase_train() -> None:
+    """Phase 12: LM training on the card (12a TinyLlama-1.1B in bf16 at full
+    width and depth; 12b and 12c card against host; 12d the CLI's restart
+    and the deterministic drill).  No frontier kernel launches here."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's default, held
+    take_counts()
+    print("phase 12: LM training (train/*, models/* backward, launch/train.py)", flush=True)
+    for name, part in (("12a", train_full), ("12b", train_card_host),
+                       ("12c", train_families), ("12d", train_restarts)):
+        t = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    if take_counts()[0]:
+        fail("phase 12 launched the frontier kernel")
+    print(f"phase 12: no frontier kernel launch; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -3034,6 +3385,7 @@ def main():
     torch.cuda.empty_cache()
     phase_lm()
     phase_families()
+    phase_train()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))
@@ -3045,5 +3397,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
         gloo_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--train-drill"]:
+        train_drill(sys.argv[2])
     else:
         main()

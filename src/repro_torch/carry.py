@@ -106,3 +106,11 @@ def cache_from_numpy(tree, device=None):
     """A decode cache pytree (``init_cache``'s keys) as tensors, dtypes
     unchanged."""
     return params_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(tree, device=None):
+    """An optimizer state (``train/optimizer.py::adamw_init``'s keys: the
+    0-d int32 ``step``, the moments ``mu`` and ``nu``, and with compression
+    the float32 residual ``err``) as tensors, dtypes unchanged: bf16
+    moments arrive as ml_dtypes arrays and are viewed as uint16."""
+    return params_from_numpy(tree, device)

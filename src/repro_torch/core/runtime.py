@@ -73,6 +73,22 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves) -> Any:
+    """A pytree of ``like``'s structure holding ``leaves`` in
+    ``tree_leaves`` order (sorted keys)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(like)
+
+
 def tree_map(fn, tree, *rest):
     """Map ``fn`` over the leaves of one or more same-structure pytrees."""
     if isinstance(tree, dict):

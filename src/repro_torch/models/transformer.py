@@ -18,7 +18,7 @@ decoder), ``rec`` (RG-LRU, ``models/rglru.py``) and ``ssm`` (Mamba2 SSD,
 
 Modes:
   forward(params, cfg, batch)                 -> logits over token positions
-  loss_fn(params, cfg, batch)                 -> scalar CE loss (forward only)
+  loss_fn(params, cfg, batch)                 -> scalar CE loss (train_step)
   init_cache(cfg, B, max_len)                 -> decode cache pytree
   serve_step(params, cfg, cache, tokens, pos) -> (logits, cache)
 
@@ -27,12 +27,18 @@ and recurrent and conv states into the cache's tensors in place (a
 stacked layer's state is a view into the stacked tensor, written with
 ``copy_``) and returns the same cache; a JAX step returns a new one with
 the same values.
+
+``remat=True`` (``loss_fn``'s default, as in JAX) wraps each stacked
+super-block and each unrolled layer in ``torch.utils.checkpoint``: its
+activations are recomputed in the backward pass instead of kept, as
+``jax.checkpoint`` does; the values are the same.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -345,7 +351,7 @@ def _apply_one(kind, p, x, cfg, angles, cache, pos, enc_out):
 
 # ----------------------------------------------------------- full model
 def _run_layers(params, x, cfg: ArchConfig, positions, cache=None, pos=None,
-                enc_out=None):
+                enc_out=None, remat: bool = False):
     pat = layer_pattern(cfg)
     plen = _plen(cfg)
     n_super = n_stacked(cfg)
@@ -356,14 +362,26 @@ def _run_layers(params, x, cfg: ArchConfig, positions, cache=None, pos=None,
         dim = cfg.rope_head_dim if cfg.use_mla else cfg.hd
         angles = rope_angles(positions if cache is None else pos[:, None], dim,
                              cfg.rope_theta)
-    for i in range(n_super if params["blocks"] else 0):
+
+    def superblock(x, i):
         for j in range(plen):
             pj = tree_map(lambda t: t[i], params["blocks"][j])
             cj = None if cache is None else tree_map(lambda t: t[i], cache["blocks"][j])
             x, _ = _apply_one(pat[j], pj, x, cfg, angles, cj, pos, enc_out)
-    for i, p in enumerate(params["rem_blocks"]):
+        return x
+
+    def layer(x, i):
         ci = None if cache is None else cache["rem_blocks"][i]
-        x, _ = _apply_one(pat[n_super * plen + i], p, x, cfg, angles, ci, pos, enc_out)
+        return _apply_one(pat[n_super * plen + i], params["rem_blocks"][i], x, cfg,
+                          angles, ci, pos, enc_out)[0]
+
+    def run(fn, x, i):
+        return checkpoint(fn, x, i, use_reentrant=False) if remat else fn(x, i)
+
+    for i in range(n_super if params["blocks"] else 0):
+        x = run(superblock, x, i)
+    for i in range(len(params["rem_blocks"])):
+        x = run(layer, x, i)
     return x, cache
 
 
@@ -393,10 +411,11 @@ def _logits(params, cfg: ArchConfig, x):
     return softcap(logits.float(), cfg.final_softcap)
 
 
-def forward(params, cfg: ArchConfig, batch: dict):
+def forward(params, cfg: ArchConfig, batch: dict, remat: bool = False):
     """Returns logits over the token positions of batch['tokens'] (audio:
     after encoding batch['frames']; vlm: after the batch['patches']
-    prefix)."""
+    prefix).  ``remat`` recomputes each layer's activations in the
+    backward pass."""
     emb = params["embed_embed"]
     tokens = torch.as_tensor(batch["tokens"], device=emb.device)
     S = tokens.shape[1]
@@ -412,17 +431,17 @@ def forward(params, cfg: ArchConfig, batch: dict):
         x = torch.cat([patches.to(x.dtype), x], dim=1)
         n_prefix = patches.shape[1]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=emb.device)
-    x, _ = _run_layers(params, x, cfg, positions, enc_out=enc_out)
+    x, _ = _run_layers(params, x, cfg, positions, enc_out=enc_out, remat=remat)
     x = rms_norm(x, params["final_norm_rep"], cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
     return _logits(params, cfg, x)
 
 
-def loss_fn(params, cfg: ArchConfig, batch: dict):
-    """Mean next-token cross-entropy; its backward comes with the training
-    slice (ROADMAP.md §1, *LM training*)."""
-    logits = forward(params, cfg, batch)
+def loss_fn(params, cfg: ArchConfig, batch: dict, remat: bool = True):
+    """Mean next-token cross-entropy over batch['targets'], differentiable
+    by autograd (``train/train_step.py``); ``remat`` as in ``forward``."""
+    logits = forward(params, cfg, batch, remat=remat)
     targets = torch.as_tensor(batch["targets"], device=logits.device).long()
     lp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(lp, -1, targets[..., None])[..., 0]

@@ -25,6 +25,7 @@ EXAMPLES = {
                             "SLCANaive finds the same SLCAs"),
     "torch_serve_continuous_batching.py": (["--requests", "6"],
                                            "outputs identical across capacities"),
+    "torch_train_lm.py": ([], "[train] finished at step 30 with 1 restart(s)"),
 }
 
 # runs an example as __main__, then reports which modules it loaded

@@ -142,5 +142,8 @@ def test_every_module_is_listed():
                  "repro_torch.configs.tinyllama_1_1b", "repro_torch.models.common",
                  "repro_torch.models.attention", "repro_torch.models.mlp",
                  "repro_torch.models.transformer", "repro_torch.launch.serve",
-                 "repro_torch.models.ssm", "repro_torch.models.rglru"):
+                 "repro_torch.models.ssm", "repro_torch.models.rglru",
+                 "repro_torch.train.optimizer", "repro_torch.train.compress",
+                 "repro_torch.train.data", "repro_torch.train.checkpoint",
+                 "repro_torch.train.train_step", "repro_torch.launch.train"):
         assert want in names
