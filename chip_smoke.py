@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path, its other query classes, its
-LM server and its LM trainer on one GPU and hold its kernel against the
-plain PyTorch version.
+LM server, its LM trainer and its sharding layer on one GPU and hold its
+kernel against the plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -77,7 +77,8 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      index_fn=hub_index_updater(backend="cuda") through the same deltas:
      each maintained index equals a pinned rebuild (every row re-labeled
      through coo; 4 sampled affected rows against a host loop; the
-     engine's pinned build at the first and last delta), indexed answers
+     engine's pinned build at every delta, through cuda at the first and
+     last and through coo between), indexed answers
      equal 7a's BiBFS answers, and a delta past the 1 % threshold takes
      the rebuild path (equal to the engine's build); (7c) run_with_recovery of
      the 256 pairs from 6a's store in three waves with a delta before each
@@ -208,6 +209,29 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      algorithms on before its first CUDA call): the restarted run's final
      parameters bit-identical to the clean run's.  No frontier kernel
      launches in phase 12.
+ 13. the sharding layer and the dry runs (models/common.py on DTensors,
+     launch/{roofline,dryrun,dryrun_quegel}.py), TF32 off: (13a)
+     attention's kv_shard path at llava-next-34b's heads (56 over 8 KV
+     heads of 128, S 4,096, float32) against kv_shard=False on the card
+     and one row against the host, within 1e-5 x max |out|, with the ms
+     of each; (13b) TinyLlama-1.1B in bf16 on a (1, 1) ("data", "model")
+     NCCL mesh: one step (8 x 2,048 tokens, n_micro 2, remat) on DTensors
+     placed by param_spec against the plain step from the same state and
+     batch (tests/_torch_train.py's rule), the ms of each, its local
+     FLOPs equal to the dry run of the same cell on a one-rank fake mesh,
+     max_memory_allocated beside MemTracker's peak; (13c) four gloo ranks
+     (`chip_smoke.py --dist-rank OUT` children, CPU tensors: DTensor's
+     collectives on gloo with CUDA tensors segfault under torch 2.11) on a
+     (2, 2) mesh, TinyLlama's width cut to 2 layers in float32 with TP on
+     'model' and FSDP on 'data': one step against the single-process step
+     on the card, and its collective bytes equal to the fake dry run's;
+     (13d) the Quegel BiBFS super-round at |V| 2^26, C 8 and 2^28 edges
+     (a device's shard of 2^31 on the (32, 8) mesh) on the one rank, ms
+     per round against the port's byte count over 3.35 TB/s, and a
+     reduced round bit-equal on the card and the host; (13e) the fake dry
+     runs (CPU children): the Quegel round at 2^26 / 2^31 on both
+     production meshes and tinyllama train_4k and decode_32k on (32, 8),
+     labelled fake-traced.  No frontier kernel launches in phase 13.
 Every cuda path of phases 2-8 runs with the kernel's launch counts set to
 0 just before it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
@@ -1622,8 +1646,9 @@ def mut_hub2(g, main, mut, paths) -> None:
     the card; then a delta past the 1 % threshold.  Each maintained index
     is held against every row re-labeled through the coo plan and, on
     MUT_BFS sampled affected rows, against a host loop that shares no code
-    with the port; at the first and last delta also against the engine's
-    pinned build (a Quegel job of k queries, ~3-5 s each)."""
+    with the port; and at every delta against the engine's pinned build (a
+    Quegel job of k queries, ~3-5 s each: through cuda at the first and
+    last delta, through coo between them)."""
     from repro_torch.apps.hub2 import (HubIndex, Hub2PPSP, _relabel_hubs, affected_hubs,
                                        build_hub_index, hub_index_updater,
                                        maintain_hub_index)
@@ -1684,17 +1709,23 @@ def mut_hub2(g, main, mut, paths) -> None:
             if not (np.array_equal(eng.index.hub_dist[row].cpu().numpy(), dist)
                     and np.array_equal(eng.index.core[row].cpu().numpy(), core)):
                 fail(f"7b delta {i + 1}: hub row {row} differs from the host loop")
+        # the engine's own pinned build, independent of the relabel under
+        # test, at every delta: through cuda (kernel checked) at the first
+        # and last, through coo between them
+        built, t = [None], time.perf_counter()
         if i in (0, len(mut["deltas"]) - 1):
-            built, t = [None], time.perf_counter()
+            how = "cuda, kernel checked"
             check_launches("mut_hub2_pinned", lambda: built.__setitem__(0, build_hub_index(
                 eng.graph, k, capacity=64, backend="cuda", hubs=hubs)), set())
-            bs = time.perf_counter() - t
-            if not same_index(eng.index, built[0]):
-                fail(f"7b delta {i + 1}: the maintained index differs from the engine's "
-                     "pinned rebuild")
-            extra = f"; == the engine's pinned rebuild (C=64, kernel checked, {bs:.3f} s)"
         else:
-            extra = ""
+            how = "coo"
+            built[0] = no_launch("7b", lambda: build_hub_index(
+                eng.graph, k, capacity=64, backend="coo", hubs=hubs))
+        bs = time.perf_counter() - t
+        if not same_index(eng.index, built[0]):
+            fail(f"7b delta {i + 1}: the maintained index differs from the engine's "
+                 "pinned rebuild")
+        extra = f"; == the engine's pinned rebuild (C=64, {how}, {bs:.3f} s)"
         print(f"  7b delta {i + 1}: {info['index']['mode']}, {len(rows)} of {k} hubs "
               f"affected, maintenance {info['ms']['index'] / 1e3:.3f} s (apply_delta "
               f"{wall:.3f} s) against phase 3's cuda build {main['build_s']:.3f} s; index "
@@ -3025,7 +3056,7 @@ TRAIN_CLI = ["--arch", "gemma2-9b", "--steps", "30", "--batch", "8", "--seq", "6
              "--n-micro", "2", "--ckpt-every", "10", "--fail-at", "17"]  # examples/train_lm.py
 
 
-def same_step(tag: str, got, want) -> str:
+def same_step(tag: str, got, want, device: str = "cpu") -> str:
     """Hold the card's step ``got`` against the host's ``want`` (both
     (params, opt_state, metrics)) by the rule of
     tests/_torch_train.py::assert_step_matches: loss and gradient norm
@@ -3038,8 +3069,11 @@ def same_step(tag: str, got, want) -> str:
     0.1 % of them.  Parameters within 1e-4 of their value or of lr (a new
     parameter near 0 is the difference of p and lr * delta) where
     |g| > 1e-5, both first moments have one nonzero sign and no level
-    differs; else within 2 * lr (step 1's update is ~ lr * g / |g|).
-    Returns a summary for the part's line."""
+    differs, or where both first moments are exactly 0 (the update is the
+    weight decay alone); else within 2 * lr (step 1's update is ~ lr *
+    g / |g|), and the count of those is printed.  The rule's float32
+    arithmetic runs on ``device``.  Returns a summary for the part's
+    line."""
     from repro_torch.core.runtime import tree_leaves
     from repro_torch.train.optimizer import OptConfig
 
@@ -3057,7 +3091,7 @@ def same_step(tag: str, got, want) -> str:
     def ulp(x):
         return torch.where(x != 0, torch.abs(x) * 2.0 ** -7, 2.0 ** -133)
 
-    f = lambda t: t.detach().float().cpu()
+    f = lambda t: t.detach().float().to(device)
     errs = zip(tree_leaves(opt["err"]), tree_leaves(wo["err"])) if "err" in wo else None
     worst = 0.0
     n_level = n_ulp = n_steady = n_all = 0
@@ -3084,7 +3118,10 @@ def same_step(tag: str, got, want) -> str:
                 fail(f"{tag}: leaf {i}: error-feedback residuals apart")
         if bool((dm > m_lim).any()) or bool((dv > v_lim).any()):
             fail(f"{tag}: leaf {i}: moments {float(dm.max()):.3e} / {float(dv.max()):.3e} apart")
-        steady = (g.abs() > 1e-5) & (torch.sign(mu) == torch.sign(wmu)) & ~off
+        # both first moments exactly 0 (no gradient on either side, as the
+        # unseen tokens' embedding rows): the update is the same decay
+        steady = (((g.abs() > 1e-5) & (torch.sign(mu) == torch.sign(wmu)) & ~off)
+                  | ((mu == 0) & (wmu == 0)))
         dp = (p - q).abs()
         bound = torch.where(steady, 1e-4 * (q.abs() + lr), torch.full_like(q, 2 * lr))
         if bool((dp > bound).any()):
@@ -3104,7 +3141,8 @@ def same_step(tag: str, got, want) -> str:
         fail(f"{tag}: {n_level} of {n_all} elements one int8 level apart")
     return (f"loss {loss:.6f} (host {wloss:.6f}), grad norm {gn:.6f} (host {wgn:.6f}); "
             f"{n_steady:,} of {n_all:,} parameters held to 1e-4 (max |d| / (|p| + lr) "
-            f"{worst:.2e}), the rest to 2 lr; {n_ulp:,} first moments over one bf16 ulp"
+            f"{worst:.2e}), {n_all - n_steady:,} to 2 lr; {n_ulp:,} first moments over one "
+            "bf16 ulp"
             + (f"; {n_level} elements one int8 level apart" if errs is not None else ""))
 
 
@@ -3336,6 +3374,451 @@ def phase_train() -> None:
           flush=True)
 
 
+# ------------------------------------------------------------ phase 13
+KV_SHAPE = dict(H=56, KV=8, D=128, S=4096)  # 13a: llava-next-34b's heads, 56 on 8-way TP
+KV_ROW = 1500          # 13a: the query row held against the host (in its 2nd chunk)
+DIST_BATCH, DIST_SEQ = 4, 64    # 13c: tokens of the four-rank step
+DIST_OVER = dict(n_layers=2, dtype="float32")  # 13c: TinyLlama's width, depth cut from 22
+QUEGEL_LOG_V = 26      # 13d: |V| = 2^26
+QUEGEL_LOG_E = 28      # 13d: 2^31 edges over the (32, 8) mesh's 8-way 'model': 2^28 a device
+QUEGEL_C = 8
+QUEGEL_REPS = 3
+
+
+def kv_attention() -> None:
+    """13a: kv_shard attention at llava-next-34b's head shape on the card,
+    float32, TF32 off: against kv_shard=False on the card and one row
+    against the host's kv_shard=True."""
+    from repro_torch.models.attention import causal_attention
+
+    H, KV, D, S = (KV_SHAPE[k] for k in ("H", "KV", "D", "S"))
+    g = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn((1, S, h, D), generator=g) for h in (H, KV, KV))
+    qc, kc, vc = q.cuda(), k.cuda(), v.cuda()
+    out = {}
+    for kv in (True, False):
+        f = lambda: causal_attention(qc, kc, vc, kv_shard=kv)
+        out[kv] = f()
+        out[kv, "ms"] = event_ms(f, 3)
+    scale = float(out[False].abs().max())
+    err = float((out[True] - out[False]).abs().max())
+    if err > 1e-5 * scale:
+        fail(f"13a: kv_shard=True differs from kv_shard=False by {err} (max |out| {scale})")
+    n = KV_ROW + 1  # causal: row KV_ROW sees keys 0..KV_ROW only
+    host = causal_attention(q[:, :n], k[:, :n], v[:, :n], kv_shard=True)[:, -1]
+    herr = float((out[True][:, KV_ROW].cpu() - host).abs().max())
+    if herr > 1e-5 * scale:
+        fail(f"13a: row {KV_ROW} differs from the host's kv_shard=True by {herr}")
+    print(f"  13a kv_shard attention, H {H} over {KV} KV heads of {D}, S {S}, B 1, float32: "
+          f"kv_shard=True {out[True, 'ms']:.3f} ms, kv_shard=False (chunked online softmax) "
+          f"{out[False, 'ms']:.3f} ms on the card; max |d| {err:.3e} of max |out| "
+          f"{scale:.3f} (bound 1e-5 x); row {KV_ROW} against the host's kv_shard=True: "
+          f"{herr:.3e}", flush=True)
+
+
+def fake_cell(world: int, shape: tuple, device: str, arch: str, over: dict, seq: int,
+              batch: int, n_micro: int, tp=None):
+    """Start the dry run of one train cell on a fake group of ``world``
+    ranks over a ``device``-typed mesh of ``shape`` ("data", "model"), the
+    type of the real run it is held against, in a child process (a
+    process holds one default group); ``fake_counts`` reads its counts.
+    ``tp``: the policy's TP switch (None: the dry run's own, by size)."""
+    code = f"""
+import dataclasses as dc, json, torch
+from repro_torch.configs import SHAPES, get_arch
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import common as MC
+DR.fake_group({world})
+mesh = make_mesh({shape!r}, ("data", "model"), device_type={device!r})
+MC.set_mesh(mesh)
+cfg = dc.replace(get_arch({arch!r}), **{over!r})
+sc = dc.replace(SHAPES["train_4k"], seq_len={seq}, global_batch={batch})
+axes, _ = DR.parallelism(cfg, sc, mesh, False)
+if {tp!r} is not None:
+    MC.set_tp({tp!r}); MC.set_fsdp(True); axes = ("data",)
+c = DR._lower_one(cfg, sc, mesh, axes, {n_micro})
+print(json.dumps(dict(c, axes=list(axes), tp=MC._TP_ENABLED, fsdp=MC._FSDP_PARAMS)))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def fake_counts(p) -> dict:
+    """The counts a ``fake_cell`` child printed."""
+    try:
+        out, err = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if p.returncode != 0:
+        fail(f"fake dry run: rc {p.returncode}\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def dist_one_rank(mesh, fake) -> None:
+    """13b: TinyLlama-1.1B in bf16 on the (1, 1) NCCL mesh: one step on
+    DTensors placed by param_spec against the plain step from the same
+    state and batch; its local FLOPs against the dry run of the same cell
+    on a one-rank fake mesh (``fake``, a ``fake_cell`` child); DTensor
+    dispatch's cost at one rank."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.core.runtime import tree_leaves, tree_map
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import common as MC
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_arch("tinyllama-1.1b")
+    sc = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    MC.set_mesh(mesh)
+    try:
+        axes, _ = DR.parallelism(cfg, sc, mesh, False)
+        params, opt = init_train_state(cfg, OptConfig(), torch.Generator("cuda").manual_seed(0),
+                                       device="cuda")
+        twin = tree_map(lambda t: t.clone(), params)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, 0).items()}
+        step = make_train_step(cfg, OptConfig(), n_micro=TRAIN_MICRO)
+        want = tree_map(lambda t: t.cpu(), step(params, opt, batch))
+        # timed warm: run alone, the step above is the process's first
+        plain_s = sync_time(lambda: step(params, opt, batch))[1]
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        dstep, args = DR.place_step_inputs(cfg, sc, mesh, axes, TRAIN_MICRO, params=twin,
+                                           batch=batch)
+        del twin
+        torch.cuda.reset_peak_memory_stats()
+        (got, counts), first_s = sync_time(lambda: DR.run_counted(dstep, args, mesh))
+        peak = torch.cuda.max_memory_allocated()
+        got = tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, got)
+        summary = same_step("13b", got, want, device="cuda")
+        del got
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            _, dt_s = sync_time(lambda: dstep(*args))
+        tp = MC._TP_ENABLED
+    finally:
+        MC.set_mesh(None)
+        MC.set_tp(True)
+        MC.set_fsdp(True)
+        fake = fake_counts(fake)
+    if counts["flops"] != fake["flops"]:
+        fail(f"13b: the step's local FLOPs {counts['flops']:.6e} != the one-rank fake dry "
+             f"run's {fake['flops']:.6e}")
+    print(f"  13b {cfg.name} {cfg.dtype} on the (1, 1) NCCL mesh, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, n_micro {TRAIN_MICRO}, remat, batch axes {axes}, TP {tp}: "
+          f"DTensor step == plain step ({summary})", flush=True)
+    print(f"  13b ms per step: plain tensors {1e3 * plain_s:.1f}, DTensors "
+          f"{1e3 * dt_s:.1f} ({dt_s / plain_s:.3f}x: DTensor dispatch at one rank); the "
+          f"counted first DTensor step {1e3 * first_s:.1f} ms", flush=True)
+    print(f"  13b local FLOPs {counts['flops']:.6e} == the one-rank fake dry run's "
+          f"{fake['flops']:.6e}; bytes {counts['bytes']:.6e} (fake {fake['bytes']:.6e}), "
+          f"collective bytes {counts['coll']:.0f} (fake {fake['coll']:.0f}); "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB against MemTracker's peak "
+          f"{counts['peak_bytes'] / 2**30:.3f} GiB on the card and "
+          f"{fake['peak_bytes'] / 2**30:.3f} GiB fake-traced (ratio "
+          f"{peak / max(fake['peak_bytes'], 1):.3f}, reported, not gated)", flush=True)
+
+
+def dist_rank(out_path: str) -> None:
+    """One of 13c's ranks (``chip_smoke.py --dist-rank OUT``, torchrun's
+    environment, a file:// rendezvous at OUT.rdv): the four-rank train
+    step of TinyLlama's width cut to 2 layers (DIST_OVER) on a (2, 2) mesh over
+    gloo, with CPU tensors: DTensor's functional collectives on gloo with
+    CUDA tensors end in a segmentation fault under torch 2.11 (cu128)."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.core.runtime import tree_map
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common as MC
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.models import transformer as T
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group("gloo", init_method=f"file://{out_path}.rdv", world_size=world,
+                            rank=rank)
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    MC.set_mesh(mesh)
+    MC.set_tp(True)
+    MC.set_fsdp(True)
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), **DIST_OVER)
+    sc = dataclasses.replace(SHAPES["train_4k"], seq_len=DIST_SEQ, global_batch=DIST_BATCH)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: torch.as_tensor(v)
+             for k, v in synthetic_batch(cfg, DIST_BATCH, DIST_SEQ, 0, 0).items()}
+    step, args = DR.place_step_inputs(cfg, sc, mesh, ("data",), TRAIN_MICRO, params=params,
+                                      batch=batch)
+    dist.barrier()
+    t0 = time.perf_counter()
+    got, counts = DR.run_counted(step, args, mesh)
+    dt = time.perf_counter() - t0
+    got = tree_map(lambda t: (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu(), got)
+    with open(f"{out_path}.{rank}", "wb") as f:
+        pickle.dump(dict(step=got, coll=counts["coll_detail"], s=dt), f)
+    dist.destroy_process_group()
+
+
+def dist_ranks_start(tmp):
+    """Start 13c's four gloo ranks (host work only), so that they run
+    beside 13a and 13b; ``dist_four_ranks`` reads them."""
+    out = os.path.join(tmp, "dist")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), WORLD_SIZE="4", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank", out],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    return procs, out, time.perf_counter()
+
+
+def dist_four_ranks(ranks, fake) -> None:
+    """13c: four gloo ranks on the host on a (2, 2) mesh (``ranks``, from
+    ``dist_ranks_start``): the sharded step against the single-process
+    step on the card, and its collective bytes against the fake-mode dry
+    run of the same shapes on a CPU-typed mesh (``fake``, a ``fake_cell``
+    child)."""
+    import pickle
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import tree_leaves, tree_map
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as T
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    procs, out, t0 = ranks
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), **DIST_OVER)
+    logs = []
+    try:
+        try:
+            params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+            batch = synthetic_batch(cfg, DIST_BATCH, DIST_SEQ, 0, 0)
+            want = make_train_step(cfg, OptConfig(), n_micro=TRAIN_MICRO)(
+                params, adamw_init(params, OptConfig()), batch)
+            want = tree_map(lambda t: t.cpu(), want)
+        finally:
+            fake = fake_counts(fake)
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"13c: ranks exited {[p.returncode for p in procs]}\n"
+             + "\n".join(text[-3000:] for text in logs))
+    for r in range(4):
+        with open(f"{out}.{r}", "rb") as f:
+            got = pickle.load(f)
+        if r == 0:
+            summary, first = same_step("13c rank 0", got["step"], want), got["step"]
+        elif not all(torch.equal(a, b) for a, b in zip(tree_leaves(got["step"]),
+                                                       tree_leaves(first))):
+            fail(f"13c rank {r}: its full state differs from rank 0's")
+        if got["coll"] != fake["coll_detail"]:
+            fail(f"13c rank {r}: collectives {got['coll']} != the fake dry run's "
+                 f"{fake['coll_detail']}")
+        if r == 0:
+            c = got["coll"]
+            print(f"  13c 4 gloo ranks on the host (CPU tensors), (2, 2) mesh, {cfg.name} "
+                  f"width, {cfg.n_layers} layers, {cfg.dtype}, batch {DIST_BATCH} x {DIST_SEQ}, "
+                  f"n_micro {TRAIN_MICRO}, TP on 'model' + FSDP on 'data': == the "
+                  f"single-process step on the card ({summary})", flush=True)
+            print(f"  13c collective bytes a rank {c['total']:,} in {c['count']} "
+                  f"collectives ({', '.join(f'{k} {c[k]:,}' for k in RL.KINDS if c[k])}; "
+                  f"by mesh dim {c['by_dim']}) == the fake-mode dry run's; the counted step "
+                  f"{got['s']:.3f} s on the host (gloo collectives, not NCCL; one thread a "
+                  f"rank, beside 13a-13b)", flush=True)
+    print(f"  13c: rank 0 == the single-process step, every rank == rank 0 bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s since the ranks started", flush=True)
+
+
+def quegel_round(mesh) -> None:
+    """13d: the Quegel super-round for real on one rank, at |V| = 2^26, C = 8
+    and the (32, 8) mesh's per-device edge shard; a reduced round bit-equal
+    on the card and on the host."""
+    from repro_torch.launch import dryrun_quegel as DQ
+    from repro_torch.launch import roofline as RL
+    from repro_torch.core.semiring import INF
+
+    small = DQ.round_inputs(16, 20, QUEGEL_C, 1, seed=3)
+    host = DQ.super_round(*[torch.as_tensor(a) for a in small])
+    card = DQ.super_round(*[torch.as_tensor(a).cuda() for a in small])
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(host, card)):
+        fail("13d: the reduced super-round differs between the card and the host")
+    if not bool(host[2].any()):
+        fail("13d: the reduced super-round grew no frontier")
+    V, E, C = 2 ** QUEGEL_LOG_V, 2 ** QUEGEL_LOG_E, QUEGEL_C
+    est = dict(dist=2 * C * V * 4, frontiers=2 * C * V, edges=3 * E * 4 + E,
+               gather=2 * C * E * 4, index=2 * E * 8)
+    print(f"  13d reduced round (|V| 2^16, |E| 2^20, C {C}, int32): card == host, bit for "
+          f"bit; full round reckoned at {sum(est.values()) / 1e9:.2f} GB ("
+          + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in est.items()) + ")", flush=True)
+    g = torch.Generator("cuda").manual_seed(4)
+    src = torch.randint(0, V, (1, E), generator=g, device="cuda", dtype=torch.int32)
+    dst = torch.randint(0, V, (1, E), generator=g, device="cuda", dtype=torch.int32)
+    rows = torch.arange(C, device="cuda")
+    st = torch.randint(0, V, (C, 2), generator=g, device="cuda")
+    dist_s = torch.full((C, V), INF, dtype=torch.int32, device="cuda")
+    dist_t = torch.full((C, V), INF, dtype=torch.int32, device="cuda")
+    dist_s[rows, st[:, 0]] = 0
+    dist_t[rows, st[:, 1]] = 0
+    ins = DQ.distribute_inputs([src, dst, torch.ones_like(src),
+                                torch.ones(src.shape, dtype=torch.bool, device="cuda"),
+                                dist_s, dist_t, dist_s < INF, dist_t < INF,
+                                torch.ones(C, dtype=torch.bool, device="cuda")],
+                               mesh)
+    del src, dst, dist_s, dist_t
+    torch.cuda.reset_peak_memory_stats()
+    run = lambda: DQ.super_round(*ins, mesh=mesh)
+    with RL.CostMode(mesh) as cm:
+        out = run()
+    torch.cuda.synchronize()
+    grown = int(out[2].to_local().sum())
+    del out
+    ms = event_ms(run, QUEGEL_REPS)
+    peak = torch.cuda.max_memory_allocated()
+    t_mem = cm.local_bytes / RL.HBM_BW
+    print(f"  13d super-round at |V| 2^{QUEGEL_LOG_V}, |E| 2^{QUEGEL_LOG_E} (a device's "
+          f"shard of 2^31 on 8-way 'model'), C {C}, one rank: {ms:.3f} ms per round (median "
+          f"of {QUEGEL_REPS}); the port's unfused byte count {cm.local_bytes / 1e9:.3f} GB "
+          f"over {RL.HBM_BW / 1e12:.2f} TB/s = {1e3 * t_mem:.3f} ms ({t_mem * 1e3 / ms:.3f} "
+          f"of the round); {grown} frontier entries grew; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    del ins
+
+
+def dryruns_start(tmp) -> list:
+    """13e's fake dry runs, started as children (CPU only): the Quegel round
+    at |V| 2^26, |E| 2^31 on both production meshes; tinyllama train_4k and
+    decode_32k on (32, 8)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    out = os.path.join(tmp, "dryrun")
+    cmds = [["-m", "repro_torch.launch.dryrun_quegel", "--out", out],
+            ["-m", "repro_torch.launch.dryrun_quegel", "--multi-pod", "--out", out],
+            ["-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b", "--shape",
+             "train_4k", "--out", out],
+            ["-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b", "--shape",
+             "decode_32k", "--out", out]]
+    return [(c, subprocess.Popen([sys.executable, *c], env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)) for c in cmds], out
+
+
+def dryruns_finish(started) -> None:
+    """13e: read the fake dry runs' JSON and print their numbers."""
+    from repro_torch.launch import roofline as RL
+
+    procs, out = started
+    for cmd, p in procs:
+        log = p.communicate(timeout=600)[0]
+        if p.returncode != 0:
+            fail(f"13e: {' '.join(cmd)} rc {p.returncode}\n{log[-3000:]}")
+    for name in ("quegel-bibfs_sp", "quegel-bibfs_mp", "tinyllama-1.1b_train_4k_sp",
+                 "tinyllama-1.1b_decode_32k_sp"):
+        with open(os.path.join(out, name + ".json")) as f:
+            r = json.load(f)
+        if r["status"] != "compiled":
+            fail(f"13e: {name}: {r['status']}")
+        mem = r["memory"]
+        if "roofline" in r:
+            rl = r["roofline"]
+            flops, byts, coll, detail = (rl["flops"], rl["bytes_accessed"], rl["coll_bytes"],
+                                         rl["coll_detail"])
+        else:
+            flops, byts, coll, detail = r["flops"], r["bytes"], r["coll_bytes"], r["coll_detail"]
+        t = RL.Roofline(r["arch"], r["shape"], r["mesh"], flops, byts, coll, detail, 0.0, 0.0)
+        on = r["traced_on"]
+        print(f"  13e {r['arch']} {r['shape']} on {r['mesh']} ({on['counts']}; a "
+              f"{on['mesh_device_type']} mesh of {on['world']} fake ranks, Shard-to-Shard "
+              f"counted as all-to-all): "
+              f"per device {(mem['arg_bytes'] + mem['temp_bytes']) / 1e9:.3f} GB (args "
+              f"{mem['arg_bytes'] / 1e9:.3f} + temp {mem['temp_bytes'] / 1e9:.3f}), FLOPs "
+              f"{flops:.4e}, bytes {byts:.4e}, collective bytes {coll:.4e} "
+              f"{detail.get('by_dim', {})}; roofline compute {1e3 * t.t_compute:.3f} ms, "
+              f"memory {1e3 * t.t_memory:.3f} ms, collective {1e3 * t.t_collective:.3f} ms "
+              f"-> {t.bottleneck}"
+              + (f"; open: {on['open']}" if "open" in on else ""), flush=True)
+
+
+def dist_children(tmp):
+    """Phase 13's CPU children: the fake dry runs 13b and 13c compare with,
+    and 13e's.  ``main`` starts them before phase 12 (13b's is the longest,
+    ~1 min, and phase 12 leaves the host mostly idle)."""
+    fakes = [fake_cell(1, (1, 1), "cuda", "tinyllama-1.1b", {}, TRAIN_SEQ, TRAIN_BATCH,
+                       TRAIN_MICRO),
+             fake_cell(4, (2, 2), "cpu", "tinyllama-1.1b", DIST_OVER, DIST_SEQ, DIST_BATCH,
+                       TRAIN_MICRO, tp=True)]
+    return fakes, dryruns_start(tmp)
+
+
+def phase_dist(children=None, tmp=None) -> None:
+    """Phase 13: the sharding layer and the dry runs (13a kv_shard attention,
+    13b one NCCL rank, 13c four gloo ranks, 13d the Quegel super-round,
+    13e the fake dry runs).  ``children``: ``dist_children(tmp)``, started
+    by the caller (else here).  No frontier kernel launches here."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    take_counts()
+    print("phase 13: the sharding layer, attention's kv_shard path and the dry runs",
+          flush=True)
+    tmp = tmp or tempfile.mkdtemp()
+    fakes, started = children or dist_children(tmp)
+    ranks = dist_ranks_start(tmp)
+    try:
+        t = time.perf_counter()
+        kv_attention()
+        print(f"  13a: {time.perf_counter() - t:.1f} s", flush=True)
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rdv13b')}",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            t = time.perf_counter()
+            dist_one_rank(mesh, fakes[0])
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"  13b: {time.perf_counter() - t:.1f} s", flush=True)
+            t = time.perf_counter()
+            dist_four_ranks(ranks, fakes[1])
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"  13c: {time.perf_counter() - t:.1f} s", flush=True)
+            t = time.perf_counter()
+            quegel_round(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"  13d: {time.perf_counter() - t:.1f} s", flush=True)
+        finally:
+            dist.destroy_process_group()
+        t = time.perf_counter()
+        dryruns_finish(started)
+        print(f"  13e: {time.perf_counter() - t:.1f} s waiting", flush=True)
+    finally:
+        for p in fakes + ranks[0] + [p for _, p in started[0]]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if take_counts()[0]:
+        fail("phase 13 launched the frontier kernel")
+    print(f"phase 13: no frontier kernel launch; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -3385,7 +3868,17 @@ def main():
     torch.cuda.empty_cache()
     phase_lm()
     phase_families()
-    phase_train()
+    tmp = tempfile.mkdtemp()
+    children = dist_children(tmp)  # CPU work of phase 13, beside phase 12's
+    try:
+        phase_train()
+        phase_dist(children, tmp)
+    finally:
+        for p in children[0] + [p for _, p in children[1][0]]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card())
     print(json.dumps({"kernels": [row]}))
@@ -3399,5 +3892,7 @@ if __name__ == "__main__":
         gloo_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--train-drill"]:
         train_drill(sys.argv[2])
+    elif sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(sys.argv[2])
     else:
         main()

@@ -7,6 +7,13 @@ rank): one process per rank, each calling the same function.  None of
 them starts a group itself, and none falls back to the CPU: the mesh's
 device type is ``cuda`` unless the caller asks for ``cpu``, and rank r
 runs on ``cuda:{r % torch.cuda.device_count()}``.
+
+The production meshes are H100 analogues of the JAX package's TPU pod
+shapes (16x16 and 2x16x16): 'model' stays inside one NVLink domain, the
+8 GPUs of an HGX H100 node, so (32, 8) ``("data", "model")`` is 256 GPUs
+(32 nodes) and (2, 32, 8) ``("pod", "data", "model")`` is 512.  The dry
+run (``launch/dryrun.py``) builds them over a fake process group of that
+world size.
 """
 from __future__ import annotations
 
@@ -23,6 +30,18 @@ def _world_size() -> int:
             "a device mesh needs an initialised process group: launch with "
             "torchrun, or call torch.distributed.init_process_group first")
     return dist.get_world_size()
+
+
+MESH_NAMES = {False: "gpu32x8", True: "gpu2x32x8"}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: Optional[str] = None):
+    """The (32, 8) or, with ``multi_pod``, (2, 32, 8) mesh over an already
+    initialised group of 256 or 512 ranks (a real one, or the dry run's
+    fake one with ``device_type="cpu"``)."""
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
 
 
 def make_mesh(shape: tuple, axes: tuple, device_type: Optional[str] = None):

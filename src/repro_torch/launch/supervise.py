@@ -27,8 +27,10 @@ death (``FailureInjector(kill_at_steps=...)`` SIGKILLs; only a parent
 process can restart — the ``--crash-test`` CLI below is that parent).
 
 Under a mesh (``--ranks N``) each attempt is a group of N rank
-processes, started with torchrun's environment (``WORLD_SIZE``, ``RANK``,
-``MASTER_ADDR``/``MASTER_PORT``): every rank boots the same engine on a
+processes, started with torchrun's environment (``WORLD_SIZE``, ``RANK``)
+and a ``file://`` rendezvous of its own under ``--out`` (a TCP port
+picked free by the parent could be taken by another process before the
+ranks bind it): every rank boots the same engine on a
 ``host_device_mesh`` over the graph padded to N, replays the journal
 and drains; only rank 0 writes the journal and the result file, and the
 injected SIGKILL takes down every rank at the same round.
@@ -47,6 +49,7 @@ CLI::
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import socket
@@ -237,7 +240,10 @@ def _child(args) -> int:
 
         from repro_torch.launch.mesh import host_device_mesh
 
-        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+        rdv = dict(init_method=f"file://{args.rendezvous}",
+                   world_size=int(os.environ["WORLD_SIZE"]),
+                   rank=int(os.environ["RANK"])) if args.rendezvous else {}
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo", **rdv)
         mesh, rank, barrier = (host_device_mesh(device_type=args.device),
                                dist.get_rank(), dist.barrier)
     g = random_graph(64, 3.0, seed=args.seed, directed=True, device=args.device)
@@ -270,6 +276,9 @@ def _child(args) -> int:
     if mesh is not None:
         import torch.distributed as dist
 
+        # the ranks leave together: rank 0 writes the result while the
+        # others would already be tearing their gloo group down
+        dist.barrier()
         dist.destroy_process_group()
     return 0
 
@@ -281,19 +290,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_group(cmd: list, env: dict, ranks: int, timeout: float):
+def _run_group(cmd: list, env: dict, ranks: int, timeout: float, rendezvous: str):
     """One attempt: the child alone, or ``ranks`` rank processes of it with
-    torchrun's environment.  Returns (rc, rank 0's stdout, stderrs): rc is
-    0 when every rank exited 0, else the first rank's nonzero code (-9 for
-    the injected SIGKILL); a group outliving ``timeout`` is killed."""
+    torchrun's environment, meeting at the ``rendezvous`` file (a fresh
+    path for every attempt).  Returns (rc, rank 0's stdout, stderrs): rc
+    is 0 when every rank exited 0, else the first rank's nonzero code (-9
+    for the injected SIGKILL); a group outliving ``timeout`` is killed."""
     if ranks == 0:
         p = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=timeout)
         return p.returncode, p.stdout, p.stderr
-    port = str(free_port())
     procs = [subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=dict(env, WORLD_SIZE=str(ranks), RANK=str(r), LOCAL_RANK=str(r),
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+        cmd + ["--rendezvous", rendezvous], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(env, WORLD_SIZE=str(ranks), RANK=str(r), LOCAL_RANK=str(r)))
         for r in range(ranks)]
     deadline = time.monotonic() + timeout
     outs = []
@@ -323,6 +332,7 @@ def _crash_test(args) -> int:
         d = os.path.join(args.out, f"seed_{seed}")
         os.makedirs(d, exist_ok=True)
         rng = np.random.default_rng(10_000 + seed)
+        attempts = itertools.count()
 
         def spawn(journal, result, kill_round):
             cmd = [
@@ -333,7 +343,8 @@ def _crash_test(args) -> int:
                 "--snapshot-every", str(args.snapshot_every),
                 "--scheduler", args.scheduler, "--device", args.device,
             ]
-            return _run_group(cmd, env, args.ranks, timeout=600)
+            rdv = os.path.join(os.path.abspath(d), f"rendezvous_{next(attempts)}")
+            return _run_group(cmd, env, args.ranks, 600, rdv)
 
         rc, out, err = spawn(os.path.join(d, "baseline.wal"),
                              os.path.join(d, "baseline.json"), 0)
@@ -395,6 +406,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scheduler", default="sjf")
     ap.add_argument("--device", default="cuda",
                     help="where each child's engine runs (cpu only when asked)")
+    ap.add_argument("--rendezvous", default="",
+                    help="a rank's file:// rendezvous (set by --crash-test; "
+                         "without it a rank reads torchrun's MASTER_ADDR/PORT)")
     ap.add_argument("--ranks", type=int, default=0,
                     help="run each child as this many mesh ranks (gloo on cpu, "
                          "nccl on cuda); 0: one process, no mesh")

@@ -14,6 +14,16 @@ wants one dtype: scores are float32 (JAX's ``preferred_element_type``),
 and the weighted sum of values is taken in the promoted dtype of the
 probabilities (cast to the query's dtype) and the values, so a bfloat16
 query against a float32 cache gives a float32 result, as in JAX.
+
+On a mesh (``models/common.py``'s sharding layer) the inputs are
+DTensors.  ``causal_attention`` then runs on each rank's shard of the
+batch and heads (``local_map``: attention is local to a (row, head)),
+except on the ``kv_shard`` path, which keeps the keys sharded over the
+sequence and the scores over the key axis, as JAX does for head counts
+that do not divide the model axis: its softmax (``_softmax``) reduces
+over the sharded axis in two small all-reduces (max and sum), and the
+weighted sum of values in one more.  Decode keeps the cache sharded over
+the sequence the same way.
 """
 from __future__ import annotations
 
@@ -21,7 +31,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import einsum
+from repro_torch.models.common import (_fit, einsum, get_mesh, is_dtensor, logical_spec,
+                                       placements, shard)
 from repro_torch.models.common import softcap as _softcap
 
 NEG_INF = -1e30
@@ -32,6 +43,26 @@ def _chunk_scores(q, k, scale, cap):
     # float32, so this equals JAX's bf16 einsum with f32 accumulation
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     return _softcap(s, cap)
+
+
+def _softmax(s):
+    """Softmax over the last axis.  On a DTensor it is spelled out, so a
+    key axis sharded over the mesh costs an all-reduce of the row maxima
+    and one of the row sums (DTensor's own softmax gathers the whole
+    axis first)."""
+    if not is_dtensor(s):
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _gqa(k, H: int):
+    """(B, S, KV, D) keys or values for H query heads: each KV head repeated
+    H // KV times in place (``repeat_interleave`` as expand and reshape,
+    which DTensor has rules for; on a mesh the heads are gathered first)."""
+    B, S, KV, D = k.shape
+    k = shard(k, "batch", None, None, None)
+    return k[:, :, :, None, :].expand(B, S, KV, H // KV, D).reshape(B, S, H, D)
 
 
 def causal_attention(
@@ -46,18 +77,61 @@ def causal_attention(
     causal: bool = True,
     kv_shard: bool = False,
 ) -> torch.Tensor:
-    """``kv_shard=True`` is the JAX package's key-axis-sharded path for head
-    counts that do not divide a mesh's model axis; without a mesh JAX never
-    takes it, and the port refuses it."""
-    if kv_shard:
-        raise NotImplementedError(
-            "kv_shard=True shards keys over a mesh axis, which waits for the "
-            "mesh tooling (ROADMAP.md §1, *TPU-mesh tooling*)")
+    """``kv_shard=True`` selects the key-axis-sharded path for head counts
+    that do not divide the model axis (llava/arctic: 56 heads): keys stay
+    sharded over the sequence ('seq_shard') and the scores over the key
+    axis, query chunk by query chunk against all S keys.  Without a mesh
+    it computes the same attention."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     if KV != H:  # GQA: broadcast kv heads across groups
-        k = torch.repeat_interleave(k, H // KV, dim=2)
-        v = torch.repeat_interleave(v, H // KV, dim=2)
+        k, v = _gqa(k, H), _gqa(v, H)
+    kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, local_window=local_window,
+              attn_softcap=attn_softcap, causal=causal)
+    if kv_shard and causal and S > q_chunk:
+        return _kv_sharded(q, k, v, q_chunk, local_window, attn_softcap)
+    return _per_head(lambda a, b, c: _causal(a, b, c, **kw), q, k, v)
+
+
+def _per_head(fn, q, k, v):
+    """``fn(q, k, v)``; on DTensors, on each rank's shard of the batch and
+    heads (attention is local to a (row, head)): the one place q, k and v
+    are redistributed."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = get_mesh()
+    pl = placements(mesh, _fit(logical_spec("batch", None, "heads", None), q.shape))
+    return local_map(fn, out_placements=(pl,), in_placements=(pl, pl, pl),
+                     redistribute_inputs=True, device_mesh=mesh)(q, k, v)
+
+
+def _kv_sharded(q, k, v, q_chunk, local_window, attn_softcap):
+    """JAX's kv_shard loop: each query chunk's scores against all S keys,
+    masked, with the keys and scores sharded over the key axis."""
+    B, S, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    k = shard(k, "batch", "seq_shard", None, None)
+    v = shard(v, "batch", "seq_shard", None, None)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    outs = []
+    for lo in range(0, S, q_chunk):
+        qc = min(q_chunk, S - lo)
+        s = _chunk_scores(q[:, lo : lo + qc], k, scale, attn_softcap)  # (B, H, qc, S)
+        qpos = lo + torch.arange(qc, device=q.device)[:, None]
+        mask = kpos <= qpos
+        if local_window:
+            mask &= kpos > qpos - local_window
+        s = torch.where(mask, s, NEG_INF)
+        s = shard(s, "batch", None, None, "seq_shard")
+        outs.append(einsum("bhqk,bkhd->bqhd", _softmax(s).to(q.dtype), v))
+    return torch.cat(outs, dim=1)
+
+
+def _causal(q, k, v, *, q_chunk, kv_chunk, local_window, attn_softcap, causal):
+    """Causal (or full) attention over q's heads; k and v have as many."""
+    B, S, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     dev = q.device
 
@@ -81,11 +155,9 @@ def causal_attention(
         def padded(t):
             return torch.cat([t, t.new_zeros((B, pad) + tuple(t.shape[2:]))], dim=1)
 
-        out = causal_attention(
-            padded(q), padded(k), padded(v),
-            q_chunk=q_chunk, kv_chunk=kv_chunk, local_window=local_window,
-            attn_softcap=attn_softcap, causal=causal,
-        )
+        out = _causal(padded(q), padded(k), padded(v), q_chunk=q_chunk,
+                      kv_chunk=kv_chunk, local_window=local_window,
+                      attn_softcap=attn_softcap, causal=causal)
         return out[:, :S]
     nq = S // q_chunk
     Dv = v.shape[-1]
@@ -133,12 +205,16 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-token attention through grouped-query einsums: the (B, 1, KV,
     G, D) query meets each KV head's cache once, with no repeat of the
-    cache across the G query heads of its group."""
+    cache across the G query heads of its group.  On a mesh the scores stay
+    sharded over the cache's sequence axis ('seq_shard'), as in JAX."""
     B, _, H, D = q.shape
     KV = k_cache.shape[2]
     G = H // KV
     S = k_cache.shape[1]
     scale = 1.0 / math.sqrt(D)
+    # on a mesh the query's heads are gathered (one token's worth): the
+    # cache is sharded over its sequence, not its heads
+    q = shard(q, "batch", None, None, None)
     qg = q.reshape(B, 1, KV, G, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * scale
     s = _softcap(s, attn_softcap)
@@ -148,19 +224,22 @@ def decode_attention(
     if local_window:
         mask = mask & (kpos > p5 - local_window)
     s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v_cache)
+    s = shard(s, "batch", None, None, None, "seq_shard")
+    o = einsum("bkgqs,bskd->bqkgd", _softmax(s).to(q.dtype), v_cache)
     return o.reshape(B, 1, H, v_cache.shape[-1])
 
 
 def full_attention(q, k, v, *, attn_softcap: float = 0.0, mask=None):
-    """Non-causal attention (encoder self-attn, cross-attn)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    KV = k.shape[2]
+    """Non-causal attention (encoder self-attn, cross-attn); on a mesh, on
+    each rank's shard of the batch and heads, as ``causal_attention``."""
     H = q.shape[2]
-    if KV != H:
-        k = torch.repeat_interleave(k, H // KV, dim=2)
-        v = torch.repeat_interleave(v, H // KV, dim=2)
+    if k.shape[2] != H:
+        k, v = _gqa(k, H), _gqa(v, H)
+    return _per_head(lambda a, b, c: _full(a, b, c, attn_softcap, mask), q, k, v)
+
+
+def _full(q, k, v, attn_softcap, mask):
+    scale = 1.0 / math.sqrt(q.shape[-1])
     s = _chunk_scores(q, k, scale, attn_softcap)
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)

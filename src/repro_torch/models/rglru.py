@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, mm
+from repro_torch.models.common import dense_init, local_map_batch, mm
 from repro_torch.models.ssm import _causal_conv
 
 C_FACTOR = 8.0
@@ -55,6 +55,16 @@ def _rglru_scan(x, r, i, lam):
     return y, y[:, -1]
 
 
+def _input_gates(bf, w_r, w_i):
+    """The recurrence gate r and the input gate i, (B, S, W) float32."""
+    return torch.sigmoid(bf @ w_r.float()), torch.sigmoid(bf @ w_i.float())
+
+
+def _gated_scan(bf, w_r, w_i, lam):
+    """The gates of ``bf`` (B, S, W) and the recurrence from h = 0."""
+    return _rglru_scan(bf, *_input_gates(bf, w_r, w_i), lam)
+
+
 def rglru_block(params, x, cfg, h_state=None, conv_state=None):
     """x: (B, S, D).  Decode when S == 1 with carried states.  Returns
     (out, new_h, new_conv_state)."""
@@ -62,11 +72,13 @@ def rglru_block(params, x, cfg, h_state=None, conv_state=None):
     b = mm(x, params["w_branch_colp"])
     b, new_conv = _causal_conv(b, params["conv_rep"], conv_state)
     bf = b.float()
-    r = torch.sigmoid(bf @ params["w_r_rep"].float())
-    i = torch.sigmoid(bf @ params["w_i_rep"].float())
+    gates = (params["w_r_rep"], params["w_i_rep"], params["lam_rep"])
     if x.shape[1] > 1:
-        y, new_h = _rglru_scan(bf, r, i, params["lam_rep"])
+        # the gates and the scan are local to a batch row (on a mesh, per
+        # rank: DTensor's rules would shard the sequence under the loop)
+        y, new_h = local_map_batch(_gated_scan, [bf], gates, n_out=2)
     else:
+        r, i = _input_gates(bf, *gates[:2])
         a, norm = _gates(params["lam_rep"], r)
         y = a * h_state[:, None] + norm * (i * bf)
         new_h = y[:, 0]

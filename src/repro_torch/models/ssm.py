@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, mm, rms_norm
+from repro_torch.models.common import dense_init, local_map_batch, mm, rms_norm
 
 
 def _segsum(x):
@@ -125,8 +125,12 @@ def ssm_block(params, x, cfg, state=None, conv_state=None):
         def padded(t):
             return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) if pad else t
 
-        y, new_state = ssd_chunked(padded(xh).float(), padded(dt), A,
-                                   padded(B).float(), padded(C).float(), cfg.ssm_chunk)
+        # the SSD einsums are local to a batch row (on a mesh, DTensor's
+        # einsum rules cannot follow their regrouped dims)
+        y, new_state = local_map_batch(
+            lambda x_, dt_, B_, C_, A_: ssd_chunked(x_, dt_, A_, B_, C_, cfg.ssm_chunk),
+            [padded(xh).float(), padded(dt), padded(B).float(), padded(C).float()],
+            [A], n_out=2)
         y = y[:, :s]
     else:  # decode recurrence
         dt0 = dt[:, 0]

@@ -47,7 +47,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import (dense_init, mm, rms_norm, rope_angles, rotate,
+from repro_torch.models.common import (batch_shards, dense_init, divides_model, is_dtensor,
+                                       local_map_batch, mm, rms_norm, rope_angles, rotate, shard,
                                        sinusoidal_embed, softcap)
 
 
@@ -219,11 +220,56 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 def _write(cache, key: str, pos, value) -> torch.Tensor:
     """Write ``value`` (B, ...) at each row's ``pos`` of ``cache[key]`` (B,
     L, ...) in place; a negative position (a dead slot's pos - 1) wraps to
-    the last entry, as a JAX index does; a local layer's ring wraps at L."""
+    the last entry, as a JAX index does; a local layer's ring wraps at L.
+    A DTensor cache (sharded over L on a mesh) takes the write as a select
+    over its positions, which is local to every shard (DTensor has no
+    rule for an index write)."""
     t = cache[key]
+    L = t.shape[1]
+    if is_dtensor(t):
+        hit = torch.arange(L, device=t.device)[None, :] == (pos % L)[:, None]
+        hit = hit.reshape(tuple(hit.shape) + (1,) * (t.ndim - 2))
+        return t.copy_(torch.where(hit, value[:, None].to(t.dtype), t))
     bidx = torch.arange(t.shape[0], device=t.device)
-    t[bidx, pos % t.shape[1]] = value.to(t.dtype)
+    t[bidx, pos % L] = value.to(t.dtype)
     return t
+
+
+def _embed(table, tokens):
+    """``table[tokens]``; on a mesh, looked up on each rank's rows of the
+    batch against the whole (gathered) table (DTensor's rule for the
+    index's backward builds a global-size gradient)."""
+    return local_map_batch(lambda t, e: e[t], [tokens], [table])
+
+
+def _log_likelihood(logits, targets):
+    """Each token's log-probability of its target, (B, S)."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(lp, -1, targets[..., None])[..., 0]
+
+
+def _residual(x, y):
+    """``x + y`` on the residual stream.  On a mesh the sum is held at
+    (batch, replicated) placements: a row-parallel projection's partial
+    sum is all-reduced here, as GSPMD does, where DTensor would otherwise
+    reduce-scatter it over the sequence at the next norm."""
+    return shard(x + y, "batch", "seq", None)
+
+
+def _heads(t, n: int, d: int):
+    """(B, S, n * d) -> (B, S, n, d).  On a mesh the n * d dim stays sharded
+    over the model axis only where n heads split evenly over it (DTensor
+    cannot split a dim sharded unevenly; GSPMD regroups it silently)."""
+    t = shard(t, "batch", "seq", "heads" if divides_model(n) else None)
+    return t.reshape(t.shape[0], t.shape[1], n, d)
+
+
+def _merge_heads(o):
+    """(B, S, n, d) -> (B, S, n * d), held sharded over the model axis only
+    where the n heads split evenly over it, so that the gradient's split
+    back into heads is even too."""
+    B, S, n, d = o.shape
+    return shard(o.reshape(B, S, n * d), "batch", "seq", "heads" if divides_model(n) else None)
 
 
 def _mla(p, h, cfg: ArchConfig, window: int, angles, cache, pos):
@@ -233,15 +279,17 @@ def _mla(p, h, cfg: ArchConfig, window: int, angles, cache, pos):
     every step.  Returns the attention output (B, S, H * nope)."""
     B, S, _ = h.shape
     H, nope, rope = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
-    q = mm(mm(h, p["wq_a_rep"]), p["wq_b_colp"]).reshape(B, S, H, nope + rope)
+    q = _heads(mm(mm(h, p["wq_a_rep"]), p["wq_b_colp"]), H, nope + rope)
     q_nope, q_rope = torch.split(q, [nope, rope], dim=-1)
     kv_a = mm(h, p["wkv_a_rep"])  # (B, S, kv_lora + rope)
     ckv, k_rope1 = torch.split(kv_a, [cfg.kv_lora_rank, rope], dim=-1)
     if cache is not None:
-        ckv = _write(cache, "ckv", pos, ckv[:, 0])
-        k_rope1 = _write(cache, "krope", pos, k_rope1[:, 0])
+        # on a mesh the latent cache is gathered over its sequence shards to
+        # meet the column-parallel up-projection
+        ckv = shard(_write(cache, "ckv", pos, ckv[:, 0]), "batch", None, None)
+        k_rope1 = shard(_write(cache, "krope", pos, k_rope1[:, 0]), "batch", None, None)
     Sk = ckv.shape[1]
-    kv = mm(ckv, p["wkv_b_colp"]).reshape(B, Sk, H, 2 * nope)
+    kv = _heads(mm(ckv, p["wkv_b_colp"]), H, 2 * nope)
     k_nope, v = torch.split(kv, [nope, nope], dim=-1)
     k_angles = angles
     if cache is not None:
@@ -250,13 +298,16 @@ def _mla(p, h, cfg: ArchConfig, window: int, angles, cache, pos):
     k = torch.cat([k_nope, k_rope.expand(B, Sk, H, rope)], dim=-1)
     q = torch.cat([q_nope, rotate(q_rope, angles)], dim=-1)
     if cache is not None:
+        # on a mesh the per-step keys and values are sharded over the
+        # sequence, as a cache is
+        k, v = (shard(t, "batch", "seq_shard", None, None) for t in (k, v))
         o = attn_lib.decode_attention(q, k, v, pos, local_window=window,
                                       attn_softcap=cfg.attn_softcap)
     else:
         o = attn_lib.causal_attention(
             q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
             local_window=window, attn_softcap=cfg.attn_softcap)
-    return o.reshape(B, S, H * nope)
+    return _merge_heads(o)
 
 
 def apply_attn_layer(p, x, cfg: ArchConfig, kind: str, angles, cache=None, pos=None,
@@ -273,9 +324,11 @@ def apply_attn_layer(p, x, cfg: ArchConfig, kind: str, angles, cache=None, pos=N
     if cfg.use_mla:
         o = _mla(p, h, cfg, window, angles, cache, pos)
     else:
-        q = mm(h, p["wq_colp"]).reshape(B, S, H, hd)
-        k = mm(h, p["wk_colp"]).reshape(B, S, KV, hd)
-        v = mm(h, p["wv_colp"]).reshape(B, S, KV, hd)
+        kv_shard = not divides_model(H)  # 56 heads on an 8-way axis etc.
+        q = _heads(mm(h, p["wq_colp"]), H, hd)
+        k = _heads(mm(h, p["wk_colp"]), KV, hd)
+        v = _heads(mm(h, p["wv_colp"]), KV, hd)
+        q = shard(q, "batch", "seq", "heads", None)
         if cfg.rope:
             q = rotate(q, angles)
             k = rotate(k, angles)
@@ -290,28 +343,34 @@ def apply_attn_layer(p, x, cfg: ArchConfig, kind: str, angles, cache=None, pos=N
         else:
             o = attn_lib.causal_attention(
                 q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-                local_window=window, attn_softcap=cfg.attn_softcap)
-        o = o.reshape(B, S, H * hd)
+                local_window=window, attn_softcap=cfg.attn_softcap, kv_shard=kv_shard)
+        o = _merge_heads(o)
     # a bfloat16 residual plus a float32 attention output is float32, as in JAX
-    x = x + mm(o, p["wo_rowp"])
+    x = _residual(x, mm(o, p["wo_rowp"]))
     if enc_out is not None and "xq_colp" in p:
         hx = rms_norm(x, p["ln_x_rep"], cfg.norm_eps)
         Se = enc_out.shape[1]
-        xq = mm(hx, p["xq_colp"]).reshape(B, S, H, hd)
-        xk = mm(enc_out, p["xk_colp"]).reshape(B, Se, KV, hd)
-        xv = mm(enc_out, p["xv_colp"]).reshape(B, Se, KV, hd)
+        xq = _heads(mm(hx, p["xq_colp"]), H, hd)
+        xk = _heads(mm(enc_out, p["xk_colp"]), KV, hd)
+        xv = _heads(mm(enc_out, p["xv_colp"]), KV, hd)
         xo = attn_lib.full_attention(xq, xk, xv, attn_softcap=cfg.attn_softcap)
-        x = x + mm(xo.reshape(B, S, H * hd), p["xo_rowp"])
+        x = _residual(x, mm(_merge_heads(xo), p["xo_rowp"]))
     h2 = rms_norm(x, p["ln2_rep"], cfg.norm_eps)
     if cfg.n_experts:
-        # one dispatch block: JAX routes decode globally, and without a
-        # mesh its prefill has one block too (``batch_shards() == 1``)
-        y = mlp_lib.moe(p["moe"], h2.reshape(B * S, D), cfg, n_blocks=1).reshape(B, S, D)
+        # blocked dispatch keeps training-scale routing shard-local; at
+        # decode T is tiny (one token a row), so it routes globally
+        nb = 1 if cache is not None else batch_shards()
+        nb = nb if B % nb == 0 else 1  # dispatch blocks align to data shards
+        x2d = h2.reshape(B * S, D)
+        y = mlp_lib.moe(p["moe"], x2d, cfg, n_blocks=nb)
+        if is_dtensor(y):  # back to the rows' layout, which (B, S) can unflatten
+            y = y.redistribute(y.device_mesh, x2d.placements)
+        y = y.reshape(B, S, D)
         if "mlp" in p:
             y = y + mlp_lib.mlp(p["mlp"], h2)
     else:
         y = mlp_lib.mlp(p["mlp"], h2)
-    return x + y, cache
+    return _residual(x, y), cache
 
 
 def _store(cache, **new):
@@ -327,9 +386,9 @@ def apply_rec_layer(p, x, cfg: ArchConfig, cache=None):
     hs = cache["h"] if cache is not None else None
     cs = cache["conv"] if cache is not None else None
     y, new_h, new_conv = rglru_lib.rglru_block(p["rglru"], h, cfg, hs, cs)
-    x = x + y
+    x = _residual(x, y)
     h2 = rms_norm(x, p["ln2_rep"], cfg.norm_eps)
-    x = x + mlp_lib.mlp(p["mlp"], h2)
+    x = _residual(x, mlp_lib.mlp(p["mlp"], h2))
     return x, _store(cache, h=new_h, conv=new_conv)
 
 
@@ -338,7 +397,7 @@ def apply_ssm_layer(p, x, cfg: ArchConfig, cache=None):
     st = cache["state"] if cache is not None else None
     cs = cache["conv"] if cache is not None else None
     y, new_state, new_conv = ssm_lib.ssm_block(p["ssm"], h, cfg, st, cs)
-    return x + y, _store(cache, state=new_state, conv=new_conv)
+    return _residual(x, y), _store(cache, state=new_state, conv=new_conv)
 
 
 def _apply_one(kind, p, x, cfg, angles, cache, pos, enc_out):
@@ -393,13 +452,13 @@ def encode(params, cfg: ArchConfig, frames):
     B, _, D = x.shape
     for p in params["encoder"]["blocks"]:
         h = rms_norm(x, p["ln1_rep"], cfg.norm_eps)
-        q = mm(h, p["wq_colp"]).reshape(B, Se, cfg.n_heads, cfg.hd)
-        k = mm(h, p["wk_colp"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
-        v = mm(h, p["wv_colp"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+        q = _heads(mm(h, p["wq_colp"]), cfg.n_heads, cfg.hd)
+        k = _heads(mm(h, p["wk_colp"]), cfg.n_kv_heads, cfg.hd)
+        v = _heads(mm(h, p["wv_colp"]), cfg.n_kv_heads, cfg.hd)
         o = attn_lib.full_attention(q, k, v)
-        x = x + mm(o.reshape(B, Se, -1), p["wo_rowp"])
+        x = _residual(x, mm(_merge_heads(o), p["wo_rowp"]))
         h2 = rms_norm(x, p["ln2_rep"], cfg.norm_eps)
-        x = x + mlp_lib.mlp(p["mlp"], h2)
+        x = _residual(x, mlp_lib.mlp(p["mlp"], h2))
     return rms_norm(x, params["encoder"]["final_norm_rep"], cfg.norm_eps)
 
 
@@ -408,7 +467,7 @@ def _logits(params, cfg: ArchConfig, x):
         logits = mm(x, params["embed_embed"].T)
     else:
         logits = mm(x, params["lm_head_colp"])
-    return softcap(logits.float(), cfg.final_softcap)
+    return shard(softcap(logits.float(), cfg.final_softcap), "batch", "seq", "vocab")
 
 
 def forward(params, cfg: ArchConfig, batch: dict, remat: bool = False):
@@ -419,7 +478,7 @@ def forward(params, cfg: ArchConfig, batch: dict, remat: bool = False):
     emb = params["embed_embed"]
     tokens = torch.as_tensor(batch["tokens"], device=emb.device)
     S = tokens.shape[1]
-    x = emb[tokens]
+    x = shard(_embed(emb, tokens), "batch", "seq", None)
     enc_out = None
     n_prefix = 0
     if cfg.family == "audio":
@@ -442,10 +501,12 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, remat: bool = True):
     """Mean next-token cross-entropy over batch['targets'], differentiable
     by autograd (``train/train_step.py``); ``remat`` as in ``forward``."""
     logits = forward(params, cfg, batch, remat=remat)
-    targets = torch.as_tensor(batch["targets"], device=logits.device).long()
-    lp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(lp, -1, targets[..., None])[..., 0]
-    return -ll.mean()
+    targets = batch["targets"]
+    if not is_dtensor(targets):
+        targets = torch.as_tensor(targets, device=logits.device)
+    # per row, as the lookup: DTensor's rule for the gather's backward
+    # builds a global-size gradient of the logits
+    return -local_map_batch(_log_likelihood, [logits, targets.long()]).mean()
 
 
 def prefill(params, cfg: ArchConfig, batch: dict):
@@ -457,7 +518,7 @@ def serve_step(params, cfg: ArchConfig, cache: dict, tokens, pos):
     """One decode step: tokens (B, 1), pos (B,) -> (logits (B, V), cache).
     Audio attends to ``cache["enc_out"]`` (zeros unless the caller writes
     an encoding there)."""
-    x = params["embed_embed"][tokens]
+    x = _embed(params["embed_embed"], tokens)
     enc_out = None
     if cfg.family == "audio":
         enc_out = cache["enc_out"]

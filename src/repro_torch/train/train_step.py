@@ -16,6 +16,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.runtime import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models import transformer as T
+from repro_torch.models.common import is_dtensor
 from repro_torch.train import compress as C
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
@@ -47,16 +48,15 @@ def make_train_step(
 
     def train_step(params, opt_state, batch):
         dev = tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: v if is_dtensor(v) else torch.as_tensor(v, device=dev)
+                 for k, v in batch.items()}
         if n_micro == 1:
             loss, grads = grad_fn(params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(n_micro):
-                mb = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, n_micro, i) for k, v in batch.items()}
                 l, g = grad_fn(params, mb)
                 for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
                     acc.add_(gi)
@@ -79,6 +79,21 @@ def make_train_step(
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def _microbatch(v: torch.Tensor, n_micro: int, i: int) -> torch.Tensor:
+    """The i-th of ``n_micro`` microbatches of ``v`` (split on dim 0).  A
+    DTensor batch sharded over the mesh is split on every rank's own rows,
+    so each microbatch stays sharded as the batch is (the rows grouped
+    into a microbatch differ from a global split; the mean over all
+    microbatches is the same)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        loc = v.to_local()
+        part = loc.reshape((n_micro, loc.shape[0] // n_micro) + loc.shape[1:])[i]
+        return DTensor.from_local(part, v.device_mesh, v.placements, run_check=False)
+    return v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])[i]
 
 
 def init_train_state(cfg: ArchConfig, opt_cfg: OptConfig, generator: torch.Generator,

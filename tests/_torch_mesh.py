@@ -270,3 +270,72 @@ def mutation_work(g0) -> dict:
         for r in range(8)
         for a, b in ((be.sg.srcp, full.srcp), (be.sg.dstp, full.dstp), (be.sg.wp, full.wp)))
     return out
+
+
+def sharding_work(batch, quegel) -> dict:
+    """The sharding layer on a (2, 2) ("data", "model") mesh: the
+    placements ``shard`` gives a DTensor; one train step of reduced
+    tinyllama on DTensors placed by ``param_spec`` (its loss, gradient
+    norm, new state as full tensors, and the collectives it issued);
+    and the Quegel super-round on a (1, 4) mesh."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import SHAPES, get_arch, reduced
+    from repro_torch.core.runtime import tree_map
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import dryrun_quegel as DQ
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common as MC
+    from repro_torch.models import transformer as T
+
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    MC.set_mesh(mesh)
+    out = {"shard": []}
+    for shape, names, tp in SHARD_CASES:
+        MC.set_tp(tp)
+        x = distribute_tensor(torch.arange(float(np.prod(shape))).reshape(shape), mesh,
+                              MC.placements(mesh, MC.Spec(*[None] * len(shape))))
+        y = MC.shard(x, *names)
+        out["shard"].append(([repr(p) for p in y.placements],
+                             bool(torch.equal(y.full_tensor(), x.full_tensor()))))
+    MC.set_tp(True)
+
+    cfg = dataclasses.replace(reduced(get_arch("tinyllama-1.1b")), vocab=512)
+    sc = dataclasses.replace(SHAPES["train_4k"], seq_len=batch["tokens"].shape[1],
+                             global_batch=batch["tokens"].shape[0])
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    step, args = DR.place_step_inputs(
+        cfg, sc, mesh, ("data",), n_micro=2, params=params,
+        batch={k: torch.as_tensor(v) for k, v in batch.items()})
+    (p, o, m), counts = DR.run_counted(step, args, mesh)
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    out["step"] = (tree_map(full, p), tree_map(full, o), tree_map(full, m))
+    out["coll"] = counts["coll_detail"]
+
+    qmesh = make_mesh((1, 4), ("data", "model"), device_type="cpu")
+    ins = DQ.distribute_inputs(quegel, qmesh)
+    res = DQ.super_round(*ins, mesh=qmesh)
+    out["quegel"] = [full(t).numpy() for t in res]
+    MC.set_mesh(None)
+    return out
+
+
+# (global shape, logical names, TP on) for ``shard`` on the (2, 2)
+# ("data", "model") mesh: even and indivisible dims, surplus names, and
+# pure DP's batch over the whole mesh degrading to its divisible prefix.
+# The placements they must give come from JAX's ``shard`` on the same mesh.
+SHARD_CASES = [
+    ((4, 6, 8), ("batch", "seq", "heads"), True),
+    ((4, 6, 8), ("batch", None, "vocab"), True),
+    ((3, 6, 8), ("batch", None, "ffn"), True),
+    ((4, 6, 5), ("batch", None, "heads"), True),
+    ((4, 8), ("batch", "seq_shard"), True),
+    ((2, 8), ("batch", "heads", "ffn"), True),
+    ((6,), ("experts",), True),
+    ((4, 6), ("batch", None), False),
+    ((2, 6), ("batch", None), False),
+    ((4, 8), (None, "heads"), False),
+]

@@ -111,7 +111,9 @@ def assert_step_matches(got, want, rtol: float = 1e-4, metric_rtol: float = 1e-4
     or of lr (a new parameter near 0 is the difference of p and
     lr * delta) where JAX's |g| > 1e-5 and both packages' first moments
     are nonzero with one sign (and, under compression, on one int8
-    level), and within 2 * lr elsewhere.  The bf16 moments are held within
+    level), or where both first moments are exactly 0 (no gradient in
+    either: the update is the weight decay alone), and within 2 * lr
+    elsewhere.  The bf16 moments are held within
     one bf16 ulp plus what a gradient difference of 1e-4 * |g| + 1e-6
     moves them (the gradients' absolute error follows the size of the
     sums, not of the result).  ``grad_err`` widens that difference by a
@@ -163,8 +165,10 @@ def assert_step_matches(got, want, rtol: float = 1e-4, metric_rtol: float = 1e-4
             assert (de <= e_lim).all(), f"err: {(de - e_lim).max()} over"
         assert (dm <= m_lim).all(), f"mu: {(dm - m_lim).max()} over"
         assert (dv <= v_lim).all(), f"nu: {(dv - v_lim).max()} over"
-        steady = (np.abs(g) > np.maximum(1e-5, dg)) & (np.sign(f32(m)) == np.sign(f32(wm))) \
-            & ~off
+        # both first moments exactly 0: no gradient in either package, so
+        # the update is the same deterministic decay, held to rtol too
+        steady = ((np.abs(g) > np.maximum(1e-5, dg)) & (np.sign(f32(m)) == np.sign(f32(wm)))
+                  & ~off) | ((f32(m) == 0) & (f32(wm) == 0))
         dp = np.abs(f32(p) - f32(wp))
         bound = np.where(steady, rtol * (np.abs(f32(wp)) + lr), 2 * lr)
         if p.dtype == torch.bfloat16:

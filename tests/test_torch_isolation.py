@@ -145,5 +145,8 @@ def test_every_module_is_listed():
                  "repro_torch.models.ssm", "repro_torch.models.rglru",
                  "repro_torch.train.optimizer", "repro_torch.train.compress",
                  "repro_torch.train.data", "repro_torch.train.checkpoint",
-                 "repro_torch.train.train_step", "repro_torch.launch.train"):
+                 "repro_torch.train.train_step", "repro_torch.launch.train",
+                 "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.dryrun_quegel", "repro_torch.launch.rerun_opt",
+                 "repro_torch.launch.compare"):
         assert want in names

@@ -207,9 +207,13 @@ def test_causal_attention_matches_jax(name):
 
 
 def test_causal_attention_refuses_kv_shard():
+    """kv_shard=True, once refused, is now JAX's key-axis-sharded path:
+    without a mesh it computes JAX's attention (tests/test_torch_sharding.py
+    covers its dtypes and windows)."""
     q, k, v = _qkv(np.random.default_rng(0), 1, 40, 4, 2)
-    with pytest.raises(NotImplementedError, match=r"\*TPU-mesh tooling\*"):
-        TA.causal_attention(t(q), t(k), t(v), q_chunk=16, kv_chunk=16, kv_shard=True)
+    kw = dict(q_chunk=16, kv_chunk=16, kv_shard=True)
+    close(TA.causal_attention(t(q), t(k), t(v), **kw),
+          JA.causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
 
 
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (6, 0.0), (6, 30.0)])
