@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path, its other query classes, its
-LM server, its LM trainer and its sharding layer on one GPU and hold its
-kernel against the plain PyTorch version.
+LM server, its LM trainer, its sharding layer and its report on one GPU
+and hold its kernel against the plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -79,8 +79,13 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      through coo; 4 sampled affected rows against a host loop; the
      engine's pinned build at every delta, through cuda at the first and
      last and through coo between), indexed answers
-     equal 7a's BiBFS answers, and a delta past the 1 % threshold takes
-     the rebuild path (equal to the engine's build); (7c) run_with_recovery of
+     equal 7a's BiBFS answers; then the delete of one undirected edge,
+     chosen on the host from the current hub_dist, for which affected_hubs
+     names between 1 and k - 1 rows (the incremental subset path; its
+     count and maintenance ms printed, the index held against the pinned
+     re-label, the indexed answers against a BiBFS drain); and a delta
+     past the 1 % threshold takes the rebuild path (equal to the
+     engine's build); (7c) run_with_recovery of
      the 256 pairs from 6a's store in three waves with a delta before each
      later wave, crashes at rounds 5 and 17, equal to the uninterrupted
      run, and a store saved at version 2 keeping its lineage; (7d) the 256
@@ -232,6 +237,19 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      runs (CPU children): the Quegel round at 2^26 / 2^31 on both
      production meshes and tinyllama train_4k and decode_32k on (32, 8),
      labelled fake-traced.  No frontier kernel launches in phase 13.
+ 14. the report (launch/report.py, host only) over JSON written in this
+     run: (14a) `python -m repro_torch.launch.report --dir` over 13e's
+     four JSONs as a CPU child, equal to report.main in-process: 4
+     compiled, 0 skipped-by-design, 0 failed, 4 cells, the two tinyllama
+     rows in each table (their 2x32x8 column "—"), each roofline row
+     carrying its JSON's times through fmt_s and its temp_bytes in GiB;
+     (14b) a JSON in BENCH_quegel.json's schema from phase 3's batch BiBFS
+     and Hub2 batch at C=8 on cuda and coo (rounds/s, q/s, the engines'
+     own p50/p95 latency, barriers) and 8a's cuda A/B, meta naming the
+     card line of phase 0, rendered with --bench, every figure as
+     bench_tables formats it; (14c) --bench BENCH_quegel.json through the
+     CLI, its line count the one tests/test_torch_report.py pins.  No
+     frontier kernel launches in phase 14.
 Every cuda path of phases 2-8 runs with the kernel's launch counts set to
 0 just before it and read just after; then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
@@ -619,6 +637,17 @@ def redrain(eng, pairs):
     return eng.run_until_drained
 
 
+def hot_cell(st, n_queries: int, wall: float) -> dict:
+    """One drain's cell in BENCH_quegel.json's ``workloads`` schema, from the
+    engine's own stats (read before anything else runs on the engine)."""
+    return dict(wall_s=wall, super_rounds=st.super_rounds, barriers=st.barriers,
+                super_rounds_per_sec=st.super_rounds / wall,
+                queries_per_sec=n_queries / wall,
+                p50_query_latency_s=st.latency_percentile(50),
+                p95_query_latency_s=st.latency_percentile(95),
+                supersteps_total=st.supersteps_total)
+
+
 def run_main_path(g, pairs, backend: str) -> dict:
     from repro_torch.apps.hub2 import build_hub_index, make_hub2_engine
     from repro_torch.apps.ppsp import make_bibfs_engine
@@ -661,6 +690,7 @@ def run_main_path(g, pairs, backend: str) -> dict:
     take_counts()
     res, dt = sync_time(eng.run_until_drained)
     out["bibfs"], out["bibfs_qps"] = res, len(pairs) / dt
+    out["hot"] = {"bibfs": hot_cell(eng.stats, len(pairs), dt)}
     # phase 6 reuses the uninterrupted answers, the rev view and the tables,
     # kept on the host so that later phases' peak memory does not hold them
     out["bibfs_map"] = _result_map(eng)
@@ -697,6 +727,7 @@ def run_main_path(g, pairs, backend: str) -> dict:
     take_counts()
     res, dt = sync_time(eng.run_until_drained)
     out["hub2"] = res
+    out["hot"]["hub2"] = hot_cell(eng.stats, len(pairs), dt)
     st = eng.stats
     rounds += st.rounds
     print(f"  [{backend}] Hub2 batch C={cfg.capacity}: {len(pairs)} queries, "
@@ -739,6 +770,7 @@ def same_results(a: dict, b: dict) -> bool:
 
 
 def phase_main_path():
+    from repro_torch.configs.quegel import QuegelConfig
     from repro_torch.core.graph import barabasi_albert
 
     (g, dt) = sync_time(lambda: barabasi_albert(MAIN_N, MAIN_M, seed=0))
@@ -779,6 +811,9 @@ def phase_main_path():
             fail(f"hub_dist row {r} differs from host BFS")
     print("phase 3: cuda == coo on every answer and index array; 16 pairs "
           "and 3 hub rows match a host BFS", flush=True)
+    cuda["hot"] = {wl: {be: {f"C{QuegelConfig().capacity}": run["hot"][wl]}
+                        for be, run in (("cuda", cuda), ("coo", coo))}
+                   for wl in ("bibfs", "hub2")}
     return g, pairs, launches, cuda
 
 
@@ -1641,6 +1676,30 @@ def mut_bibfs(g, pairs, main, paths) -> dict:
     return dict(deltas=deltas, fresh=fresh_log[:MUT_DELTAS], graph=eng.graph)
 
 
+def subset_delete(graph, hub_dist):
+    """A delete of one undirected edge of ``graph`` (both directions),
+    chosen on the host from the current (k, V) ``hub_dist``, that
+    ``affected_hubs`` names for some hub rows but not all: the first of
+    1,024 sampled edges (default_rng(11)) whose endpoints' labels differ
+    by exactly one in between 1 and k - 1 rows (a deleted (u, v) affects
+    hub h iff d_h[u] + 1 == d_h[v], in either direction).  Returns (the
+    delta, (u, v), the number of rows it names)."""
+    s, d, _ = graph._edges_np()
+    pick = np.random.default_rng(11).choice(len(s), min(1024, len(s)), replace=False)
+    pick = pick[s[pick] < d[pick]]
+    u, v = s[pick], d[pick]
+    col = lambda a: hub_dist[:, torch.as_tensor(a, device=hub_dist.device).long()]
+    named = (np.abs(col(u).cpu().numpy().astype(np.int64)
+                    - col(v).cpu().numpy().astype(np.int64)) == 1).sum(0)
+    ok = np.nonzero((named > 0) & (named < hub_dist.shape[0]))[0]
+    if not len(ok):
+        fail(f"7b: none of {len(pick)} sampled edges names a strict subset of the hubs")
+    j = ok[0]
+    a, b = int(u[j]), int(v[j])
+    return (graph.make_delta(np.zeros((0, 2), np.int32), np.asarray([[a, b], [b, a]], np.int32)),
+            (a, b), int(named[j]))
+
+
 def mut_hub2(g, main, mut, paths) -> None:
     """7b: the Hub2 engine through the same deltas, its index maintained on
     the card; then a delta past the 1 % threshold.  Each maintained index
@@ -1652,6 +1711,7 @@ def mut_hub2(g, main, mut, paths) -> None:
     from repro_torch.apps.hub2 import (HubIndex, Hub2PPSP, _relabel_hubs, affected_hubs,
                                        build_hub_index, hub_index_updater,
                                        maintain_hub_index)
+    from repro_torch.apps.ppsp import make_bibfs_engine
     from repro_torch.core.engine import QuegelEngine
     from repro_torch.core.semiring import INF
     from repro_torch.kernels import ops
@@ -1679,7 +1739,12 @@ def mut_hub2(g, main, mut, paths) -> None:
         return HubIndex(idx0.hub_ids, idx0.is_hub, dist,
                         (dist < INF) & (~pre | idx0.is_hub[None, :]))
 
-    for i, (delta, (fresh, want)) in enumerate(zip(mut["deltas"], mut["fresh"])):
+    def absorb(label, delta, fresh, want):
+        """Apply ``delta`` through the engine (its index maintained on the
+        card) and check the indexed answers of ``fresh`` against ``want``,
+        the relabel's launches against the plain version, the index against
+        a pinned rebuild and sampled rows against the host loop.  Returns
+        (info, wall s, the affected rows, the sampled rows)."""
         old = eng.index
         rows = affected_hubs(old, delta)
         before = len(paths)
@@ -1689,26 +1754,30 @@ def mut_hub2(g, main, mut, paths) -> None:
         counted("mut_hub2", lambda: drain_submitted(eng), paths)
         got = {j: eng.runtime.results[q] for j, q in enumerate(qids)}
         if any(int(got[j]["dist"]) != int(want[j]["dist"]) for j in got):
-            fail(f"7b delta {i + 1}: indexed answers differ from 7a's BiBFS answers")
+            fail(f"7b {label}: indexed answers differ from BiBFS answers")
         plan = upd.state["plan"]
 
         def recheck():
             dist, pre = _relabel_hubs(plan, old.is_hub, old.hub_ids, rows)
             r = torch.as_tensor(rows, device=dist.device).long()
             if not torch.equal(dist, eng.index.hub_dist[r]):
-                fail(f"7b delta {i + 1}: a second relabel differs")
+                fail(f"7b {label}: a second relabel differs")
             drain(eng, [p[::-1].copy() for p in fresh])
 
         check_launches("mut_hub2", recheck, new_rows(paths, before))
         if not same_index(eng.index, pinned(eng.graph)):
-            fail(f"7b delta {i + 1}: the maintained index differs from a pinned rebuild")
+            fail(f"7b {label}: the maintained index differs from a pinned rebuild")
         sample = rng.choice(rows, min(MUT_BFS, len(rows)), replace=False)
         for row in sample:
             dist, pre = host_hub_labels(eng.graph, is_hub_np, int(hubs[row]))
             core = (dist < 2**30) & (~pre | is_hub_np)
             if not (np.array_equal(eng.index.hub_dist[row].cpu().numpy(), dist)
                     and np.array_equal(eng.index.core[row].cpu().numpy(), core)):
-                fail(f"7b delta {i + 1}: hub row {row} differs from the host loop")
+                fail(f"7b {label}: hub row {row} differs from the host loop")
+        return info, wall, rows, sample
+
+    for i, (delta, (fresh, want)) in enumerate(zip(mut["deltas"], mut["fresh"])):
+        info, wall, rows, sample = absorb(f"delta {i + 1}", delta, fresh, want)
         # the engine's own pinned build, independent of the relabel under
         # test, at every delta: through cuda (kernel checked) at the first
         # and last, through coo between them
@@ -1732,6 +1801,30 @@ def mut_hub2(g, main, mut, paths) -> None:
               f"== all {k} rows re-labeled through coo, rows {sorted(sample.tolist())} == "
               f"the host loop; {MUT_FRESH} indexed answers == 7a's BiBFS"
               f"{extra}", flush=True)
+    # one edge whose deletion re-labels some hubs but not all: the subset
+    # path of affected_hubs, which the deltas above (every hub) never take
+    old = eng.index
+    delta, (u, v), named = subset_delete(eng.graph, old.hub_dist)
+    rows = affected_hubs(old, delta)
+    if not 0 < len(rows) < k or len(rows) != named:
+        fail(f"7b subset delta: affected_hubs names {len(rows)} of {k} rows (the host "
+             f"predicted {named}); it must name a strict, nonempty subset")
+    fresh = np.concatenate([[[u, v], [v, u]], np.random.default_rng(10).integers(
+        0, g.n_real, (MUT_FRESH - 2, 2))]).astype(np.int32)
+    ref = make_bibfs_engine(eng.graph.apply_delta(delta), capacity=FT_C, backend="coo")
+    for p in fresh:
+        ref.submit(p)
+    want = ref.run_until_drained()
+    del ref
+    info, wall, rows, sample = absorb("subset delta", delta, fresh, want)
+    if info["index"]["mode"] != "incremental" or info["index"]["affected_hubs"] != len(rows):
+        fail(f"7b subset delta: {info['index']}")
+    print(f"  7b subset delta: edge ({u}, {v}) deleted (both directions), chosen on the host "
+          f"from hub_dist; affected_hubs names {len(rows)} of {k} rows (the host predicted "
+          f"{named}); maintenance {info['ms']['index']:.3f} ms (apply_delta {wall:.3f} s); "
+          f"index == all {k} rows re-labeled through coo, rows {sorted(sample.tolist())} == "
+          f"the host loop; {MUT_FRESH} indexed answers ({u}, {v} and back among them, d = "
+          f"{int(want[0]['dist'])} after the delete) == a BiBFS drain", flush=True)
     rng = np.random.default_rng(8)
     big = undirected_delta(eng.graph, rng, MUT_REBUILD, 0)
     old = eng.index
@@ -1936,9 +2029,10 @@ class TimedPumps:
         return out
 
 
-def serve_ab(g, pairs, main, tables, paths) -> None:
+def serve_ab(g, pairs, main, tables, paths) -> dict:
     """8a: the legacy round against the fused one, BFS C=8 k=1, on cuda and
-    on coo, 3 interleaved reps of each."""
+    on coo, 3 interleaved reps of each.  Returns the cuda plan's medians in
+    BENCH_quegel.json's ``ab`` schema."""
     from repro_torch.apps.ppsp import make_bfs_engine
     from repro_torch.core.engine import EngineStats
 
@@ -1974,6 +2068,12 @@ def serve_ab(g, pairs, main, tables, paths) -> None:
                                path_keys(paths, f"serve_ab_{mode}"))
         med = {m: (statistics.median(c[0] for c in cs), statistics.median(c[1] for c in cs))
                for m, cs in cells.items()}
+        if plan == "cuda":
+            ab = dict(workload=f"ppsp_bfs_cuda_C{SERVE_C}",
+                      **{m: dict(super_rounds_per_sec=r, queries_per_sec=q)
+                         for m, (r, q) in med.items()},
+                      speedup_super_rounds_per_sec=med["fused"][0] / med["legacy"][0],
+                      speedup_queries_per_sec=med["fused"][1] / med["legacy"][1])
         print(f"  8a [{plan}] BFS C={SERVE_C} k=1, {len(pairs)} pairs, {AB_REPS} interleaved "
               f"reps: legacy {med['legacy'][0]:.3f} rounds/s, {med['legacy'][1]:.3f} q/s; "
               f"fused {med['fused'][0]:.3f} rounds/s, {med['fused'][1]:.3f} q/s; "
@@ -1985,6 +2085,7 @@ def serve_ab(g, pairs, main, tables, paths) -> None:
               "distances == phase 3's", flush=True)
         del engines
         gc.collect()
+    return ab
 
 
 def serve_vclock(g, pairs, main, tables, rev, paths):
@@ -2175,14 +2276,14 @@ def serve_pool(g, pairs, main, store, q_max, paths) -> None:
 def phase_serving(g, pairs, main, store):
     """Phase 8: open-loop serving and the legacy round on the card, reusing
     phase 3's graph, rev view, pairs, tables and answers and 6a's store.
-    Returns (launches, path rows)."""
+    Returns (launches, path rows, 8a's A/B of the cuda plan)."""
     from repro_torch.launch import env
 
     t0 = time.perf_counter()
     print(f"phase 8: host tunings {env.describe()}", flush=True)
     tables, rev = tables_to(main["tables"], "cuda"), main["rev"].to("cuda")
     q_max, paths, warm = main["bibfs_qps"], [], {}
-    parts = (("8a", lambda: serve_ab(g, pairs, main, tables, paths)),
+    parts = (("8a", lambda: warm.update(ab=serve_ab(g, pairs, main, tables, paths))),
              ("8b", lambda: warm.update(eng=serve_vclock(g, pairs, main, tables, rev, paths))),
              ("8c", lambda: serve_wall(warm.pop("eng"), pairs, main, q_max, paths)),
              ("8d", lambda: serve_pool(g, pairs, main, store, q_max, paths)))
@@ -2196,7 +2297,7 @@ def phase_serving(g, pairs, main, store):
     launches = sum(r["launches"] for r in paths)
     print(f"phase 8: {launches} kernel launches in the cuda runs; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return launches, paths
+    return launches, paths, warm["ab"]
 
 # ------------------------------------------------------------ phase 9
 MESH_DELTAS = 3        # 9c: the first deltas of 7a, replayed under a mesh
@@ -3777,6 +3878,7 @@ def phase_dist(children=None, tmp=None) -> None:
     take_counts()
     print("phase 13: the sharding layer, attention's kv_shard path and the dry runs",
           flush=True)
+    own = tmp is None  # a caller's tmp (and 13e's JSON in it) outlives the phase
     tmp = tmp or tempfile.mkdtemp()
     fakes, started = children or dist_children(tmp)
     ranks = dist_ranks_start(tmp)
@@ -3813,10 +3915,159 @@ def phase_dist(children=None, tmp=None) -> None:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if own:
+            shutil.rmtree(tmp, ignore_errors=True)
     if take_counts()[0]:
         fail("phase 13 launched the frontier kernel")
     print(f"phase 13: no frontier kernel launch; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ------------------------------------------------------------ phase 14
+def rendered(argv: list) -> str:
+    """What the port's report prints for ``argv``, run in this process."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import report
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main(argv)
+    if rc != 0:
+        fail(f"14: report.main({argv}) returned {rc}")
+    return buf.getvalue()
+
+
+def report_child(argv: list):
+    """``python -m repro_torch.launch.report`` as a CPU child, from the root."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.report", *argv],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def child_out(what: str, p) -> str:
+    out, err = p.communicate(timeout=300)
+    if p.returncode != 0:
+        fail(f"{what}: the report CLI exited {p.returncode}\n{err[-3000:]}")
+    return out
+
+
+def report_dryruns(d: str, child) -> None:
+    """14a: 13e's four JSONs through the report, in a child and in-process."""
+    from repro_torch.launch import report
+    from repro_torch.launch.mesh import MESH_NAMES
+
+    text = rendered(["--dir", d])
+    if child_out("14a", child) != text:
+        fail("14a: the CLI child's dry-run tables differ from report.main in-process")
+    want = "## Dry-run matrix (4 compiled, 0 skipped-by-design, 0 failed, 4 cells)"
+    matrix, _, roof = text.partition("\n## Roofline (single-pod 32x8, per device)\n")
+    if text.splitlines()[0] != want or not roof:
+        fail(f"14a: the header or the roofline heading is wrong:\n{text}")
+    body = lambda t: [ln for ln in t.splitlines() if ln.startswith("| ")][1:]
+    shapes = ("train_4k", "decode_32k")
+    rows = body(matrix)
+    if len(rows) != 2 or any(not r.startswith(f"| tinyllama-1.1b | {s} | compiled | — | ")
+                             for r, s in zip(rows, shapes)):
+        fail(f"14a: the dry-run matrix is not the two tinyllama rows:\n{matrix}")
+    rows = {r.split(" | ")[1]: r for r in body(roof)}  # in the JSON files' order
+    if len(body(roof)) != 2 or sorted(rows) != sorted(shapes):
+        fail(f"14a: the roofline table is not the two tinyllama rows:\n{roof}")
+    for s in shapes:
+        r = rows[s]
+        with open(os.path.join(d, f"tinyllama-1.1b_{s}_sp.json")) as f:
+            c = json.load(f)
+        rl = c["roofline"]
+        if c["mesh"] != MESH_NAMES[False] or not r.startswith(
+                f"| tinyllama-1.1b | {s} | {report.fmt_s(rl['t_compute'])} | "
+                f"{report.fmt_s(rl['t_memory'])} | {report.fmt_s(rl['t_collective'])} | "
+                f"{rl['bottleneck']} | ") or \
+                f" | {c['memory']['temp_bytes'] / 2**30:.1f}GiB | " not in r:
+            fail(f"14a: the {s} roofline row does not carry its JSON's numbers: {r}")
+    print("  14a: report --dir over 13e's four JSONs (fake-traced, not measured); the CLI "
+          "child == report.main in-process:", flush=True)
+    for ln in text.splitlines():
+        print(f"    {ln}", flush=True)
+
+
+def report_hot_path(card_line: str, hot: dict, ab: dict, tmp: str) -> None:
+    """14b: phase 3's and 8a's own numbers as a JSON in BENCH_quegel.json's
+    schema, through ``--bench``."""
+    from repro_torch.launch import report
+
+    bench = dict(meta=dict(backend="cuda", torch=torch.__version__, cuda=torch.version.cuda,
+                           platform=card_line, quick=False),
+                 workloads=hot, ab=ab)
+    path = os.path.join(tmp, "hot_path.json")
+    with open(path, "w") as f:
+        json.dump(bench, f, indent=1)
+    text = rendered(["--bench", path])
+    lines = text.splitlines()
+    missing = [f"_{card_line}_"] if f"_{card_line}_" not in lines else []
+    cells = lambda ln: ln.split(" | ")
+    for wl, plans in hot.items():
+        for be, cs in plans.items():
+            for cname, m in cs.items():
+                row = [ln for ln in lines
+                       if ln.startswith(f"| {wl} | {be} | {cname.removeprefix('C')} | ")]
+                figs = [f"{m['super_rounds_per_sec']:.1f}", f"{m['queries_per_sec']:.1f}",
+                        report.fmt_s(m["p50_query_latency_s"]),
+                        report.fmt_s(m["p95_query_latency_s"])]
+                if len(row) != 1 or any(x not in cells(row[0]) for x in figs):
+                    missing.append(f"{wl}/{be}/{cname}: {figs}")
+    ab_line = [ln for ln in lines if ln.startswith(f"**A/B ({ab['workload']}):**")]
+    figs = [f"{ab['fused']['super_rounds_per_sec']:.1f}",
+            f"{ab['legacy']['super_rounds_per_sec']:.1f}",
+            f"{ab['speedup_super_rounds_per_sec']:.2f}x"]
+    if len(ab_line) != 1 or any(x not in ab_line[0] for x in figs):
+        missing.append(f"A/B: {figs}")
+    if missing:
+        fail(f"14b: figures missing from the hot-path tables: {missing}\n{text}")
+    print(f"  14b: the hot-path JSON of phases 3 and 8a: {json.dumps(bench)}", flush=True)
+    print("  14b: report --bench over it (every q/s, rounds/s and latency as phases 3 and 8a "
+          "measured them):", flush=True)
+    for ln in lines:
+        print(f"    {ln}", flush=True)
+
+
+def phase_report(card_line: str, dryrun_dir: str, hot: dict, ab: dict, tmp: str) -> None:
+    """Phase 14: the port's report (launch/report.py, host only) over JSON
+    written on this machine.  No frontier kernel launches here."""
+    import re
+
+    t0 = time.perf_counter()
+    take_counts()
+    print("phase 14: the report over this run's JSON", flush=True)
+    children = [report_child(["--dir", dryrun_dir]),
+                report_child(["--bench", "BENCH_quegel.json"])]
+    try:
+        t = time.perf_counter()
+        report_dryruns(dryrun_dir, children[0])
+        print(f"  14a: {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        report_hot_path(card_line, hot, ab, tmp)
+        print(f"  14b: {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        pin = re.search(r"^BENCH_QUEGEL_LINES = (\d+)$",
+                        (ROOT / "tests" / "test_torch_report.py").read_text(), re.M)
+        if pin is None:
+            fail("14c: tests/test_torch_report.py pins no BENCH_QUEGEL_LINES")
+        n = len(child_out("14c", children[1]).splitlines())
+        if n != int(pin.group(1)):
+            fail(f"14c: --bench BENCH_quegel.json printed {n} lines, the test pins "
+                 f"{pin.group(1)}")
+        print(f"  14c: report --bench BENCH_quegel.json (the JAX package's CPU run, committed) "
+              f"exits 0 and prints {n} lines, as tests/test_torch_report.py pins; "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if take_counts()[0]:
+        fail("phase 14 launched the frontier kernel")
+    print(f"phase 14: no frontier kernel launch; {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main():
@@ -3850,7 +4101,7 @@ def main():
         mut_launches, mut_paths, deltas = phase_mutation(g, pairs, main_run, tmp, store)
         gc.collect()
         torch.cuda.empty_cache()
-        serve_launches, serve_paths = phase_serving(g, pairs, main_run, store)
+        serve_launches, serve_paths, ab = phase_serving(g, pairs, main_run, store)
         gc.collect()
         torch.cuda.empty_cache()
         phase_mesh(g, pairs, main_run, reach, deltas, tmp)
@@ -3862,6 +4113,7 @@ def main():
                launches=launches + app_launches + ft_launches + mut_launches + serve_launches,
                max_abs_err=max_err, **timing,
                paths=main_run["paths"] + app_paths + ft_paths + mut_paths + serve_paths)
+    hot = main_run["hot"]  # phase 14 renders it with 8a's A/B
     # phase 10 needs none of the graph phases' state: free it on the card
     del g, pairs, main_run, reach, deltas, store
     gc.collect()
@@ -3873,6 +4125,7 @@ def main():
     try:
         phase_train()
         phase_dist(children, tmp)
+        phase_report(line, children[1][1], hot, ab, tmp)
     finally:
         for p in children[0] + [p for _, p in children[1][0]]:
             if p.poll() is None:

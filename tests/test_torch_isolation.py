@@ -148,5 +148,5 @@ def test_every_module_is_listed():
                  "repro_torch.train.train_step", "repro_torch.launch.train",
                  "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
                  "repro_torch.launch.dryrun_quegel", "repro_torch.launch.rerun_opt",
-                 "repro_torch.launch.compare"):
+                 "repro_torch.launch.compare", "repro_torch.launch.report"):
         assert want in names

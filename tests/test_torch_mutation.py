@@ -433,6 +433,46 @@ def test_hub2_incremental_matches_jax_and_pinned_rebuild(small_undirected):
     assert same is tidx and info_e["affected_hubs"] == 0
 
 
+@pytest.mark.parametrize("backend", ["coo", "cuda"])
+def test_hub2_strict_subset_delete_matches_jax(ba_graph, backend):
+    """The delete ``chip_smoke.py`` 7b applies after its deltas: one
+    undirected edge, chosen from the current hub labels, whose endpoints'
+    labels differ by exactly one in some rows but not all, so
+    ``affected_hubs`` names a strict, nonempty subset and the incremental
+    path re-labels only those rows.  The port's index equals the JAX
+    package's ``maintain_hub_index``, and a pinned rebuild; the rows it
+    does not name are the old ones."""
+    jg = ba_graph
+    tg = port_graph(jg)
+    k = 16
+    jidx = jhub2.build_hub_index(jg, k)
+    tidx = hub2.build_hub_index(tg, k, device="cpu")
+    s, d, _ = tg._edges_np()
+    hd = tidx.hub_dist.numpy().astype(np.int64)
+    named = (np.abs(hd[:, s] - hd[:, d]) == 1).sum(0)
+    pick = np.nonzero((s < d) & (named > 0) & (named < k))[0][0]
+    u, v = int(s[pick]), int(d[pick])
+    jd = jg.make_delta(dels=[(u, v), (v, u)])
+    td = carry.edge_delta_from_numpy(fields_np(jd))
+    rows = hub2.affected_hubs(tidx, td)
+    assert 0 < len(rows) < k and len(rows) == named[pick]
+    np.testing.assert_array_equal(rows, jhub2.affected_hubs(jidx, jd))
+    jg1, tg1 = jg.apply_delta(jd), tg.apply_delta(td)
+    jinc, jinfo = jhub2.maintain_hub_index(jg1, jidx, jd)
+    inc, info = hub2.maintain_hub_index(tg1, tidx, td, backend=backend, block=16)
+    assert info["mode"] == jinfo["mode"] == "incremental"
+    assert info["affected_hubs"] == jinfo["affected_hubs"] == len(rows)
+    full = hub2.build_hub_index(tg1, k, hubs=tidx.hub_ids.numpy(), device="cpu")
+    for f in ("hub_ids", "is_hub", "hub_dist", "core"):
+        np.testing.assert_array_equal(getattr(inc, f).numpy(), np.asarray(getattr(jinc, f)))
+        assert torch.equal(getattr(inc, f), getattr(full, f)), f
+    kept = np.setdiff1d(np.arange(k), rows)
+    assert torch.equal(inc.hub_dist[kept], tidx.hub_dist[kept])
+    assert torch.equal(inc.core[kept], tidx.core[kept])
+    assert not (torch.equal(inc.hub_dist[rows], tidx.hub_dist[rows])
+                and torch.equal(inc.core[rows], tidx.core[rows]))
+
+
 def test_relabel_matches_the_engine_rows(small_undirected):
     """The batched device BFS gives every hub's row as the engine's
     HubLabelBFS build does (all rows re-labeled, any chunk)."""
