@@ -1,0 +1,223 @@
+"""The harness on the CPU at a tiny size: its dispatch by name, a cell added
+by files alone, the refusals, and ``correct`` coming out false when the
+timed path is broken underneath (each fault these cells can have) or when
+the control takes the program's place."""
+import contextlib
+import io
+import json
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from qbench import harness, loops, trace
+from qbench.tests.tiny import QBENCH, ROOT, make_root
+
+CELLS = ["kron20-bibfs-batch", "terrain2m-sssp-batch"]
+
+
+@pytest.fixture(autouse=True)
+def only_what_the_run_loads(monkeypatch):
+    """A run is its own process; in a test process other tests may already
+    have loaded JAX, so only what a run loads counts here."""
+    before = set(harness.forbidden_modules())
+    orig = harness.forbidden_modules
+    monkeypatch.setattr(harness, "forbidden_modules",
+                        lambda: sorted(set(orig()) - before))
+
+
+def run_cell(root, workload, *extra, fault=None, seconds="0.5"):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = harness.main(["--workload", workload, "--seed", "2147483659",
+                           "--seconds", seconds, *extra],
+                          root=root, device="cpu", fault=fault)
+    lines = out.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_sound_run_is_correct_and_reports_its_metrics(tmp_path, workload):
+    rc, res, err = run_cell(make_root(tmp_path), workload)
+    assert rc == 0, err
+    assert res["correct"] is True and res["failed"] == 0 and res["attempted"] > 0
+    assert set(res["metrics"]) == {"qps", "p50_ms", "p95_ms", "setup_s"}
+    assert list(res)[-1] == "checks"
+    assert res["device"]["platform"] == "gpu" and res["device"]["count"] == 1
+    tail = err.strip().splitlines()[-len(res["checks"]):]
+    assert all(line.startswith("check ") and "(limit " in line for line in tail)
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_traced_run_reports_the_per_layer_metrics(tmp_path, workload):
+    rc, res, err = run_cell(make_root(tmp_path), workload, "--trace", "1")
+    assert rc == 0, err
+    assert res["correct"] is True
+    # no device on the CPU: the device readers find nothing but the idle share
+    assert {"slot_fill", "queue_wait_p95_ms", "round_ms", "service_p95_ms"} <= set(res["metrics"])
+    assert "propagate_roofline" not in res["metrics"]
+    assert res["device"]["window_s"] > 0 and "breakdown" in res
+
+
+def test_a_traced_run_profiles_the_windows_first_part(tmp_path, monkeypatch):
+    monkeypatch.setattr(harness, "TRACE_S", 0.3)
+    rc, res, err = run_cell(make_root(tmp_path), CELLS[0], "--trace", "1", seconds="1.2")
+    assert rc == 0, err
+    assert res["correct"] is True
+    assert 0.3 <= res["device"]["window_s"] < 0.6
+    assert res["attempted"] > 0 and res["metrics"]["round_ms"]["value"] > 0
+
+
+def test_a_cell_config_traffic_and_metric_added_by_files_alone(tmp_path):
+    root = make_root(tmp_path)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cfg = json.loads((root / "qbench/configs/kron20-bibfs.json").read_text())
+    cfg.update(scale=7, name="kron7-dummy")
+    (root / "qbench/configs/kron7-dummy.json").write_text(json.dumps(cfg))
+    traffic = {"loop": "open", "arrivals": {"process": "poisson", "rate": 200.0},
+               "pairs": {"draw": "uniform"}, "warmup_queries": 4, "drain_s": 2.0}
+    (root / "qbench/traffic/poisson200-dummy.json").write_text(json.dumps(traffic))
+    (root / "qbench/metrics/dummy_answered.py").write_text(
+        "def read(ctx):\n    return float(len(ctx.answered))\n")
+    bench["configs"].append({"name": "kron7-dummy", "source": "test", "reduced": [],
+                             "file": "qbench/configs/kron7-dummy.json", "why": "test"})
+    bench["workloads"].append({"name": "kron7-dummy-open", "config": "kron7-dummy",
+                               "traffic": "poisson200-dummy", "chips": 1, "why": "test"})
+    bench["end_to_end"].append({"name": "dummy_answered", "unit": "q", "better": "higher",
+                                "bound": 0.1, "source": "host_clock",
+                                "workloads": ["kron7-dummy-open"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    rc, res, err = run_cell(root, "kron7-dummy-open")
+    assert rc == 0, err
+    assert res["correct"] is True
+    assert res["metrics"]["dummy_answered"]["value"] == pytest.approx(
+        res["metrics"]["qps"]["value"] * 0.5)
+    rc, res, _ = run_cell(root, "kron20-bibfs-batch")
+    assert "dummy_answered" not in res["metrics"]
+
+
+# --------------------------------------------------------------- the faults
+def stale_state(engine):
+    """A step that returns its state unchanged."""
+    prog = engine.program
+    inner = prog.superstep
+
+    def superstep(state, ctx):
+        return state, inner(state, ctx)[1]
+
+    prog.superstep = superstep
+
+
+def half_batch(engine):
+    """Half of the batch left out: the upper half of the lanes sends nothing."""
+    for backend in engine._backends.values():
+        inner = backend.propagate
+
+        def propagate(sr, x, frontier=None, _inner=inner):
+            keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+            keep[x.shape[0] // 2:] = False
+            f = keep[:, None] if frontier is None else frontier & keep[:, None]
+            return _inner(sr, x, f)
+
+        backend.propagate = propagate
+
+
+def altered_answer(engine):
+    """An answer altered where it is produced: every other slot's distance."""
+    prog = engine.program
+    inner = prog.extract
+
+    def extract(state, query):
+        res = dict(inner(state, query))
+        bump = torch.zeros_like(res["dist"])
+        bump[::2] = 1
+        res["dist"] = res["dist"] + bump
+        return res
+
+    prog.extract = extract
+
+
+@pytest.mark.parametrize("fault", [stale_state, half_batch, altered_answer],
+                         ids=lambda f: f.__name__)
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_broken_timed_path_is_not_correct(tmp_path, workload, fault):
+    rc, res, err = run_cell(make_root(tmp_path, drain_s=0.5), workload, fault=fault)
+    assert rc == 0, err
+    assert res["correct"] is False
+    assert any(c["value"] > c["limit"] for c in res["checks"].values())
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_the_control_is_not_correct(tmp_path, workload):
+    """The control in the program's place: the first-meet search breaks the
+    exact hop count, bfloat16 the float32 distances.  The harness's own
+    comparison judges its answers and finds them wrong."""
+    rc, res, err = run_cell(make_root(tmp_path), workload, "--control", "1")
+    assert rc == 0, err
+    assert res["correct"] is False
+    assert any(c["value"] > c["limit"] for c in res["checks"].values())
+    assert "the control answers" in err
+
+
+def test_the_drain_adds_no_bytes_to_the_roofline(tmp_path, monkeypatch):
+    """The byte count is read at the window's close; propagate calls made by
+    the drain after it are not counted."""
+    seen = {}
+
+    class Recording(trace.ByteCounter):
+        def close(self):
+            seen["closed"] = super().close()
+            return seen["closed"]
+
+    inner_drain = loops.Window.drain
+
+    def drain(window):
+        rounds = len(window.target.stats.round_times)
+        inner_drain(window)
+        seen["drain_rounds"] = len(window.target.stats.round_times) - rounds
+        seen["after"] = int(seen["counter"].total)
+
+    def init(self, device, _init=trace.ByteCounter.__init__):
+        _init(self, device)
+        seen["counter"] = self
+
+    monkeypatch.setattr(Recording, "__init__", init)
+    monkeypatch.setattr(trace, "ByteCounter", Recording)
+    monkeypatch.setattr(loops.Window, "drain", drain)
+    rc, res, err = run_cell(make_root(tmp_path), CELLS[1], "--trace", "1")
+    assert rc == 0, err
+    assert seen["drain_rounds"] > 0
+    assert seen["closed"] > 0 and seen["after"] == seen["closed"]
+
+
+# -------------------------------------------------------------- refusals
+def test_no_cuda_device_gives_no_result(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = harness.main(["--workload", CELLS[0], "--seed", "1", "--seconds", "1"],
+                          root=make_root(tmp_path), device="cuda")
+    assert rc != 0 and out.getvalue() == ""
+    assert "CUDA" in err.getvalue()
+
+
+def test_a_checkout_of_only_the_benchmark_gives_no_result(tmp_path):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(QBENCH, tmp_path / "qbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    done = subprocess.run([sys.executable, "qbench/run.py", "--workload", CELLS[1],
+                           "--seed", "1", "--seconds", "1", "--trace", "0"],
+                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert done.returncode != 0
+    assert not done.stdout.strip()
+
+
+@pytest.mark.parametrize("top", ["jax", "jaxlib", "flax", "repro"])
+def test_jax_loaded_by_the_run_gives_no_result(tmp_path, monkeypatch, top):
+    name = f"{top}._loaded_by_the_run"
+    load = lambda engine: monkeypatch.setitem(sys.modules, name, type(sys)(name))
+    rc, res, err = run_cell(make_root(tmp_path), CELLS[0], fault=load)
+    assert rc != 0 and res is None
+    assert name in err
