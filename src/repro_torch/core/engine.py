@@ -18,6 +18,9 @@ One fused round (``slot_round``):
   * exactly ONE device->host sync: ``done`` and ``step`` stacked and
     copied together.
 
+The three are spanned while a profiler records (``quegel.admit``, one
+``quegel.step`` per superstep, ``quegel.sync``; ``core/spans.py``).
+
 ``legacy=True`` keeps the pre-overhaul round as the A/B baseline: a
 device->host read of the liveness before admission, one ``init`` and
 row copy per admitted query, a second liveness read after admission,
@@ -84,6 +87,7 @@ from repro_torch.core.runtime import (
     DONE, QueryTimeoutError, ResumeAdmission, RoundOutcome, SlotProgram,
     SlotRuntime, SlotStats, default_cache_key, to_numpy, tree_leaves, tree_map)
 from repro_torch.core.semiring import BY_NAME, Semiring
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 
 
@@ -700,16 +704,17 @@ class QuegelEngine(SlotProgram):
         """ONE superstep for the slots of ``adv`` on edition ``ed``.
         ``done`` accumulates over the round (a slot finishing at superstep
         j of k still reads True at the round's readback)."""
-        S = self._slots
-        ctx = StepCtx(ed.run_graph, S["query"], S["step"] + 1,
-                      self._propagate_for(adv, ed.run), ed.index)
-        new_state, done = self.program.superstep(S["state"], ctx)
-        tree_map(lambda tab, v: tab.copy_(torch.where(_expand_as(adv, tab), v, tab)),
-                 S["state"], new_state)
-        done = done & adv
-        S["step"].add_(adv.to(torch.int32))
-        S["live"].logical_and_(~done)
-        S["done"].logical_or_(done)
+        with span("quegel.step"):
+            S = self._slots
+            ctx = StepCtx(ed.run_graph, S["query"], S["step"] + 1,
+                          self._propagate_for(adv, ed.run), ed.index)
+            new_state, done = self.program.superstep(S["state"], ctx)
+            tree_map(lambda tab, v: tab.copy_(torch.where(_expand_as(adv, tab), v, tab)),
+                     S["state"], new_state)
+            done = done & adv
+            S["step"].add_(adv.to(torch.int32))
+            S["live"].logical_and_(~done)
+            S["done"].logical_or_(done)
 
     # ------------------------------------------- SlotProgram (device side)
     def slot_round(self, admitted: dict[int, Any]) -> RoundOutcome:
@@ -737,12 +742,14 @@ class QuegelEngine(SlotProgram):
         if self.legacy:
             # the two liveness reads the fused round removed: before
             # admission (free-slot discovery) and after it (any live?)
-            to_numpy(S["live"])
-            for slot in admitted:
-                self._admit({slot: admitted[slot]})
-            bool(S["live"].any())
+            with span("quegel.admit"):
+                to_numpy(S["live"])
+                for slot in admitted:
+                    self._admit({slot: admitted[slot]})
+                bool(S["live"].any())
         elif admitted:
-            self._admit(admitted)
+            with span("quegel.admit"):
+                self._admit(admitted)
         live = np.asarray(self.runtime.live, dtype=bool)
         versions = sorted({int(self._slot_version[s]) for s in np.flatnonzero(live)}) or [cur]
         groups = []
@@ -757,7 +764,8 @@ class QuegelEngine(SlotProgram):
             for mask, ed in groups:
                 adv = S["live"].clone() if mask is None else S["live"] & mask
                 self._superstep(adv, ed)
-        out = torch.stack([S["done"].to(torch.int32), S["step"]]).cpu().numpy()
+        with span("quegel.sync"):
+            out = torch.stack([S["done"].to(torch.int32), S["step"]]).cpu().numpy()
         if self.mesh is not None:
             self._slots = self._shard(S, self._vq)
         return RoundOutcome(done=out[0].astype(bool), steps=out[1])

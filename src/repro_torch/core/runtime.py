@@ -35,6 +35,10 @@ and the open-loop ``pump``/``poll`` face, and:
   journal after a crash and resume with identical results.  A result with
   non-finite floats is quarantined: fresh re-admission with exponential
   backoff up to ``max_retries``, then the terminal status ``POISONED``.
+
+While a profiler records, each executed round is spanned as
+``quegel.round``, enclosing the program's phases and the runtime's
+``quegel.collect`` and ``quegel.retire`` (``core/spans.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +55,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.spans import span
 
 # Terminal query statuses (``SlotRuntime.status[qid]``).
 DONE = "DONE"          # voted done; result extracted
@@ -951,6 +957,10 @@ class SlotRuntime:
         """Admit (+ preempt) + one program round + retire.  Returns the
         retired [(qid, result, status)] — empty if the round completed
         nothing — or None when there was nothing to run."""
+        with span("quegel.round"):
+            return self._run_round()
+
+    def _run_round(self) -> Optional[list[tuple[int, Any, str]]]:
         t0 = time.perf_counter()
         self._ticks += 1
         self._release_retries()
@@ -979,15 +989,37 @@ class SlotRuntime:
                 and self._slot_ticket[s].budget > 0
                 and int(steps[s]) >= self._slot_ticket[s].budget
             ]
-            if evicted:
-                self.program.slot_evict(evicted)
             retiring = finished + evicted
-            collected = (
-                self.program.slot_collect(retiring) if retiring else []
-            )
+            collected = []
+            if retiring:
+                with span("quegel.collect"):
+                    if evicted:
+                        self.program.slot_evict(evicted)
+                    collected = self.program.slot_collect(retiring)
         except Exception:
             self._abandon_live_slots()
             raise
+        completed: list[tuple[int, Any, str]] = []
+        if retiring:
+            with span("quegel.retire"):
+                completed = self._retire(retiring, collected, finished, steps, t_done)
+        self.stats.rounds += 1
+        self.stats.slot_occupancy.append(occupancy)
+        self.program.slot_observe()
+        dt = time.perf_counter() - t0
+        self.stats.round_times.append(dt)
+        if self.straggler is not None and self.straggler.record(self.stats.rounds, dt):
+            self.stats.straggler_rounds += 1
+        if (self.snapshot_every > 0 and self.journal is not None
+                and self.stats.rounds % self.snapshot_every == 0):
+            self.snapshot()
+        return completed
+
+    def _retire(self, retiring: list[int], collected: list, finished: list[int],
+                steps: np.ndarray, t_done: float) -> list[tuple[int, Any, str]]:
+        """The host's bookkeeping of the round's retirements: statuses,
+        results, stats, cache and journal; a poisoned result is queued for
+        a fresh re-run instead while retries remain."""
         completed: list[tuple[int, Any, str]] = []
         for slot, res in zip(retiring, collected):
             tk = self._slot_ticket.pop(slot)
@@ -1032,16 +1064,6 @@ class SlotRuntime:
             if self.journal is not None:
                 self.journal.retire(tk.qid, status, int(steps[slot]), res)
             completed.append((tk.qid, res, status))
-        self.stats.rounds += 1
-        self.stats.slot_occupancy.append(occupancy)
-        self.program.slot_observe()
-        dt = time.perf_counter() - t0
-        self.stats.round_times.append(dt)
-        if self.straggler is not None and self.straggler.record(self.stats.rounds, dt):
-            self.stats.straggler_rounds += 1
-        if (self.snapshot_every > 0 and self.journal is not None
-                and self.stats.rounds % self.snapshot_every == 0):
-            self.snapshot()
         return completed
 
     # ------------------------------------------------------------ open loop

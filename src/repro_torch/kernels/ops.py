@@ -24,7 +24,10 @@ Sparsity gating: on the tile plans the frontier is pushed into the block
 path.  A per-(dst block, slot) activity bitmap — the frontier reduced over
 every lane, looked up per source block — lets the kernel skip dead tiles,
 and the per-lane mask is applied inside visited tiles only.  ``gate=False``
-restores the dense pre-mask as the baseline.
+restores the dense pre-mask as the baseline.  A tile plan's propagate
+spans the bitmap as ``quegel.gate`` and the plan's run (for ``cuda``, the
+kernel's wrapper and launch) as ``quegel.kernel`` while a profiler
+records (``core/spans.py``).
 
 Mutation: ``refresh(graph, delta)`` returns a new backend serving the
 mutated graph (tile tables spliced row by row, the receiver untouched, so
@@ -43,6 +46,7 @@ import torch
 from repro_torch.core.graph import (BlockSparse, Graph, PackedBlocks, pack_blocks,
                                     pad_block_slots, pad_packed_slots)
 from repro_torch.core.semiring import BY_NAME, Semiring
+from repro_torch.core.spans import span
 from repro_torch.kernels import frontier, ref
 
 
@@ -282,8 +286,10 @@ class _TileBackend(PropagateBackend):
                 mflat = None
             active = None
         else:
-            active = block_activity(bs, mflat)
-        out = self._run(bs, sr, flat, mflat, active)
+            with span("quegel.gate"):
+                active = block_activity(bs, mflat)
+        with span("quegel.kernel"):
+            out = self._run(bs, sr, flat, mflat, active)
         return out.reshape(x.shape)
 
     def _run(self, bs, sr, flat, mflat, active):
