@@ -15,10 +15,15 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      combine or drop) and of barabasi_albert(4096, 3), whose hub rows span
      several work items: five semirings (int32; float32 for min_plus,
      max_plus and sum_times, with weights beyond +-32 so that add_id + t
-     passes add_id), B in {16, 128}, Q in {1, 5, 8}, gated and dense, with
-     and without a mask, V not a multiple of B, and an all-dead bitmap.
-     Exact equality, except float sum_times (atomic order) to 1e-4, and
-     the same outputs at add_id in every case;
+     passes add_id), B in {16, 128}, Q in {1, 5, 8}, gated by the
+     per-slot bitmap and by the per-source-block live table (the engine's
+     form) and dense, with and without a mask, V not a multiple of B, and
+     all dead in both forms.  Exact equality, except float sum_times
+     (atomic order) to 1e-4, and the same outputs at add_id in every case.
+     Then the gate plus the kernel per call on a kron20-shaped table
+     (a Graph500 Kronecker graph at SCALE 20, edge factor 16, built here,
+     B=128, Q=8 two BFS supersteps out), the per-slot form against the
+     live form, by CUDA events;
   3. the main path — BiBFS (interactive C=1 and batch C=8), the Hub² index
      build (k=1000, C=8) and Hub² batch queries on
      barabasi_albert(262144, 3) through backend="cuda", then the same work
@@ -27,13 +32,15 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      went through the kernel;
   4. one propagate at two shapes, Q=8 and a BFS frontier two hops out on
      barabasi_albert(n, 3) for n = 32768 (where the dense-tile kernel was
-     timed) and n = 262144 (the main path's): kernel, plain version, COO
-     scatter_reduce and gated COO (gather_edges=65536, one host sync) times,
-     and the bound (the bytes the inputs need over
-     3.35 TB/s: per lit edge its position, x, mask and y once, the bitmap
-     of the slots that hold entries and the source block of the lit ones);
-     at n = 32768 the kernel is also held against the dense
-     tile loop over the dense table;
+     timed) and n = 262144 (the main path's), gated as the engine gates
+     it (block_live's table, held against its plain reduction, then the
+     kernel): the gate plus the kernel, the kernel alone, plain version,
+     COO scatter_reduce and gated COO (gather_edges=65536, one host sync)
+     times, and the bound (the bytes the inputs need over 3.35 TB/s: per
+     lit edge its position, x, mask and y once, the gate's read of the
+     mask, its table written and read, and the source block of each slot
+     that holds entries); at n = 32768 the kernel is also held against
+     the dense tile loop over the dense table;
   5. the paper's other four query classes at full size, each through
      backend="cuda" and again through backend="coo" at C=8: terrain SSSP
      on grid_terrain(257, 257, eps_subdiv=2) (float32 min_plus), graph
@@ -251,13 +258,17 @@ Phases, each printing its own lines; any mismatch exits nonzero:
      CLI, its line count the one tests/test_torch_report.py pins.  No
      frontier kernel launches in phase 14.
 Every cuda path of phases 2-8 runs with the kernel's launch counts set to
-0 just before it and read just after; then its work runs again with the kernel's output
+0 just before it and read just after, with the gate's: block_live's
+launches, which must equal the kernel's calls gated by the live table,
+and no call gated by a per-slot bitmap.  Then its work runs again with the kernel's output
 held against the plain version, exactly, on the inputs of the 1st, 2nd,
 4th, 8th, ... launch of each (semiring, dtype, Q) that the path
-launched (all but 6e, whose poisoned lanes are NaN); phase 7 holds each
+launched (all but 6e, whose poisoned lanes are NaN), and the live table
+of each such launch against the mask's plain reduction; phase 7 holds each
 delta's launches on that delta's spliced tables.  The last lines are the card, one JSON object
 describing the kernel (its launches per path, semiring, dtype and Q
-under "paths"), and {"ok": true, "device": {...}}.
+under "paths", the gate's launches per path under "gate_paths"), and
+{"ok": true, "device": {...}}.
 """
 import collections
 import dataclasses
@@ -324,12 +335,35 @@ def event_ms(fn, reps: int) -> float:
 
 def take_counts():
     """The kernel's launch counts since the last call, as (launches,
-    {(semiring, dtype, Q): launches}), and reset them to 0."""
+    {(semiring, dtype, Q): launches}, gates), and reset them to 0; gates
+    counts block_live's launches ("block_live") and the kernel's calls by
+    gating form ("live", "slots", "none")."""
     from repro_torch.kernels import frontier
 
-    out = (frontier.launches(), dict(frontier.propagate_blocks.shapes))
-    frontier.propagate_blocks.shapes.clear()
+    f = frontier.propagate_blocks
+    gates = collections.Counter(f.gating)
+    gates["block_live"] = sum(frontier.block_live.shapes.values())
+    out = (frontier.launches(), dict(f.shapes), gates)
+    for counter in (f.shapes, f.gating, frontier.block_live.shapes):
+        counter.clear()
     return out
+
+
+GATE_PATHS = {}  # path -> the gate's counts of its counted runs (take_counts)
+
+
+def path_gates(path: str, gates, backend: str = "cuda") -> None:
+    """Record one counted run's gate counts under its path.  On cuda every
+    table the kernel is gated by is block_live's, one launch a call, and
+    no call takes a per-slot bitmap; coo launches neither."""
+    n = gates["block_live"]
+    if backend == "cuda" and (gates["slots"] or n != gates["live"]):
+        fail(f"{path}: {n} block_live launches for {gates['live']} live-gated and "
+             f"{gates['slots']} bitmap-gated kernel calls")
+    if backend != "cuda" and (n or sum(gates.values())):
+        fail(f"{path}: the {backend} plan launched the gate or the kernel: {dict(gates)}")
+    row = GATE_PATHS.setdefault(path, collections.Counter())
+    row.update({k: v for k, v in gates.items() if v})
 
 
 def path_rows(path: str, shapes: dict) -> list:
@@ -350,18 +384,26 @@ def check_launches(path: str, run, keys: set) -> None:
     middle and late supersteps of the path's queries.  Exact
     (torch.equal) on every path: none of them runs float sum_times.
     Fails unless each key of ``keys`` (the path's counted run) was
-    checked.  The launches of this run are not counted."""
+    checked.  Each checked launch's live table (block_live's, as the plan
+    gates) is held against the mask's plain reduction first.  The
+    launches of this run are not counted."""
     from repro_torch.kernels import frontier, ops
 
     orig = ops.CudaBackend._run
-    seen, checked = collections.Counter(), collections.Counter()
+    seen, checked, tables = collections.Counter(), collections.Counter(), [0]
 
-    def checked_run(self, bs, sr, flat, mflat, active):
-        out = orig(self, bs, sr, flat, mflat, active)
+    def checked_run(self, bs, sr, flat, mflat, **gate):
+        out = orig(self, bs, sr, flat, mflat, **gate)
         key = (sr.name, str(flat.dtype).removeprefix("torch."), flat.shape[0])
         seen[key] += 1
         if seen[key] & (seen[key] - 1) == 0:
-            want = frontier.propagate_blocks_plain(bs, sr, flat, mflat, active)
+            if "live" in gate:
+                want_live = frontier.block_live_plain(mflat, bs.num_dst_blocks, bs.block)
+                if not torch.equal(gate["live"], want_live):
+                    fail(f"{path}: launch {seen[key]} at {key}: block_live's table "
+                         "differs from the mask's plain reduction")
+                tables[0] += 1
+            want = frontier.propagate_blocks_plain(bs, sr, flat, mflat, **gate)
             if out.shape != want.shape or not torch.equal(out, want):
                 fail(f"{path}: launch {seen[key]} at {key} differs from the plain "
                      "version on its own inputs")
@@ -382,7 +424,8 @@ def check_launches(path: str, run, keys: set) -> None:
         fail(f"{path}: no launch at {sorted(missing)} was held against the plain version")
     done = ", ".join(f"{sr}/{dt}/Q={q} x{n}" for (sr, dt, q), n in sorted(checked.items()))
     print(f"  [cuda] {path}: kernel == plain, exactly, on {sum(checked.values())} of "
-          f"{sum(seen.values())} launches, on their own inputs ({done})", flush=True)
+          f"{sum(seen.values())} launches, on their own inputs ({done}); block_live == "
+          f"plain on the {tables[0]} live tables among them", flush=True)
 
 
 # ------------------------------------------------------------ phase 2
@@ -413,26 +456,31 @@ def parity_graph(n: int, kind: str, sr, dtype, rng):
 
 def kernel_cases(pb, sr, x, m, where: str):
     """The kernel against its plain version on one packed table and x:
-    gated and dense, with and without the mask m, and an all-dead bitmap.
-    Exact, except float sum_times (atomic order) to 1e-4; the outputs at
-    add_id are the same in every case.  Returns (cases, max abs error)."""
+    gated by the per-slot bitmap and by the live table, and dense, with
+    and without the mask m, and all dead in both forms.  Exact, except
+    float sum_times (atomic order) to 1e-4; the outputs at add_id are the
+    same in every case.  Returns (cases, max abs error)."""
     from repro_torch.kernels import frontier, ops
 
-    dead = torch.zeros((pb.num_dst_blocks, pb.max_bpr), dtype=torch.bool, device="cuda")
+    nb = pb.num_dst_blocks
+    dead = dict(active=torch.zeros((nb, pb.max_bpr), dtype=torch.bool, device="cuda"))
+    dead_live = dict(live=torch.zeros(nb, dtype=torch.bool, device="cuda"))
     variants = [
-        (None, ops.block_activity(pb, None)),  # gated, no mask
-        (m, ops.block_activity(pb, m)),        # gated, mask
-        (None, None),                          # dense
-        (m, None),                             # dense, mask
-        (m, dead),                             # all dead
+        (None, dict(active=ops.block_activity(pb, None))),       # gated, no mask
+        (m, dict(active=ops.block_activity(pb, m))),             # gated, mask
+        (m, dict(live=frontier.block_live(m, nb, pb.block))),    # the engine's gate
+        (None, {}),                                              # dense
+        (m, {}),                                                 # dense, mask
+        (m, dead),                                               # all dead
+        (m, dead_live),                                          # all dead, live form
     ]
     worst = 0.0
     add_id = sr.identity(x.dtype)
-    for mask, active in variants:
-        got = frontier.propagate_blocks(pb, sr, x, mask, active)
-        want = frontier.propagate_blocks_plain(pb, sr, x, mask, active)
+    for mask, gate in variants:
+        got = frontier.propagate_blocks(pb, sr, x, mask, **gate)
+        want = frontier.propagate_blocks_plain(pb, sr, x, mask, **gate)
         torch.cuda.synchronize()
-        at = f"{where} mask={mask is not None} active={active is not None}"
+        at = f"{where} mask={mask is not None} gate={sorted(gate)}"
         if got.shape != want.shape or got.dtype != want.dtype:
             fail(f"kernel shape/dtype differs: {at}")
         if not torch.equal(got == add_id, want == add_id):
@@ -443,9 +491,95 @@ def kernel_cases(pb, sr, x, m, where: str):
             worst = max(worst, float((got - want).abs().max()))
         elif not torch.equal(got, want):
             fail(f"kernel differs from plain version: {at}")
-        if active is dead and not (got == add_id).all():
-            fail(f"all-dead bitmap left a non-identity output: {at}")
+        if (gate is dead or gate is dead_live) and not (got == add_id).all():
+            fail(f"all-dead gate left a non-identity output: {at}")
     return len(variants), worst
+
+
+def kronecker_arcs(scale: int, edgefactor: int, seed: int, device="cuda"):
+    """A Graph500 Kronecker graph (A, B, C = 0.57, 0.19, 0.19): each of
+    edgefactor * 2**scale edges placed bit by bit in a quadrant, labels
+    permuted and edges shuffled, the quadrants and the labels both drawn
+    from ``seed``; then both arcs of every edge, self-loops and duplicates
+    dropped.  Returns int32 (src, dst) sorted by (src, dst), and n."""
+    m, n = edgefactor << scale, 1 << scale
+    a, b, c = 0.57, 0.19, 0.19
+    ab = a + b
+    c_norm, a_norm = c / (1.0 - ab), a / ab
+    gens = [torch.Generator(device=device) for _ in range(2)]
+    for gen in gens:
+        gen.manual_seed(seed)
+    ii = torch.zeros(m, dtype=torch.int64, device=device)
+    jj = torch.zeros(m, dtype=torch.int64, device=device)
+    for bit in range(scale):
+        ii_bit = torch.rand(m, generator=gens[0], device=device) > ab
+        jj_bit = torch.rand(m, generator=gens[0], device=device) > torch.where(
+            ii_bit, c_norm, a_norm)
+        ii += ii_bit.to(torch.int64) << bit
+        jj += jj_bit.to(torch.int64) << bit
+    perm = torch.randperm(n, generator=gens[1], device=device)
+    shuffle = torch.randperm(m, generator=gens[1], device=device)
+    u, v = perm[ii][shuffle], perm[jj][shuffle]
+    s, d = torch.cat([u, v]), torch.cat([v, u])
+    key = torch.unique(s[s != d] * n + d[s != d])
+    return (key // n).to(torch.int32), (key % n).to(torch.int32), n
+
+
+def phase_gate_timing() -> dict:
+    """The tile gate plus the kernel per call on a kron20-shaped table:
+    :func:`kronecker_arcs` at SCALE 20, edge factor 16, seed 1, B=128,
+    min_right, Q=8 lanes two BFS supersteps out.  The per-slot form
+    (``block_activity``'s (nb, max_bpr) grid, then the kernel) against the
+    live form (``block_live``'s one launch, then the kernel), by CUDA
+    events, the two outputs held equal; and each form's peak memory above
+    what the inputs hold."""
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.semiring import MIN_RIGHT
+    from repro_torch.kernels import frontier, ops
+
+    sr, q = MIN_RIGHT, 8
+    src, dst, n = kronecker_arcs(20, 16, seed=1)
+    g = Graph.from_edges(src.cpu().numpy(), dst.cpu().numpy(), n, device="cuda")
+    del src, dst
+    (pb, dt) = sync_time(lambda: g.to_packed_blocks(128, sr))
+    dist, front = bfs_frontier(g, q)
+    nb, b = pb.num_dst_blocks, pb.block
+    if not torch.equal(frontier.block_live(front, nb, b),
+                       frontier.block_live_plain(front, nb, b)):
+        fail("gate timing: block_live differs from the mask's plain reduction")
+    slots = lambda: frontier.propagate_blocks(pb, sr, dist, front,
+                                              ops.block_activity(pb, front))
+    live = lambda: frontier.propagate_blocks(pb, sr, dist, front,
+                                             live=frontier.block_live(front, nb, b))
+    if not torch.equal(slots(), live()):
+        fail("gate timing: the live form differs from the per-slot form")
+    peak = {}
+    for name, fn in (("slots", slots), ("live", live)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    act, table = ops.block_activity(pb, front), frontier.block_live(front, nb, b)
+    out = dict(
+        gate_slots_ms=event_ms(lambda: ops.block_activity(pb, front), 50),
+        gate_live_ms=event_ms(lambda: frontier.block_live(front, nb, b), 50),
+        kernel_slots_ms=event_ms(lambda: frontier.propagate_blocks(pb, sr, dist, front, act), 50),
+        kernel_live_ms=event_ms(lambda: frontier.propagate_blocks(pb, sr, dist, front,
+                                                                  live=table), 50),
+        call_slots_ms=event_ms(slots, 50), call_live_ms=event_ms(live, 50),
+        peak_slots_bytes=peak["slots"], peak_live_bytes=peak["live"])
+    take_counts()  # timing launches are not a path's
+    print(f"phase 2 gate timing: kronecker SCALE {n.bit_length() - 1}, {g.num_edges} arcs, packed table "
+          f"{pb.nbytes} bytes (slot grid {tuple(pb.src_ids.shape)}) in {dt:.2f} s; "
+          f"{int(front.sum())} frontier vertices light {int(table.sum())} of {nb} "
+          f"source blocks; per call, ms: " + ", ".join(
+              f"{k} {v!r}" for k, v in out.items()), flush=True)
+    del g, pb, dist, front, act, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernel_parity() -> float:
@@ -661,9 +795,10 @@ def run_main_path(g, pairs, backend: str) -> dict:
 
     def launched(path: str) -> int:
         """Read the counts of the path just driven (and set them to 0)."""
-        n, shapes = take_counts()
+        n, shapes, gates = take_counts()
         total[0] += n
         paths.extend(path_rows(path, shapes))
+        path_gates(path, gates, backend)
         return n
 
     eng = make_bibfs_engine(g, capacity=1, **kw)
@@ -840,9 +975,10 @@ def bfs_frontier(g, q: int):
 
 
 def time_propagate(g, check_dense: bool) -> dict:
-    """One propagate at the main path's shapes on ``g``: kernel, plain
-    version and COO scatter_reduce times, and the bound from the bytes
-    these inputs need."""
+    """One propagate at the main path's shapes on ``g``, gated as the
+    engine gates it (block_live's table, then the kernel): gate plus
+    kernel, kernel alone, plain version and COO scatter_reduce times, and
+    the bound from the bytes these inputs need."""
     from repro_torch.core.graph import pack_blocks
     from repro_torch.core.semiring import MIN_RIGHT
     from repro_torch.kernels import frontier, ops, ref
@@ -850,35 +986,39 @@ def time_propagate(g, check_dense: bool) -> dict:
     q, sr = 8, MIN_RIGHT
     dist, front = bfs_frontier(g, q)
     (pb, dt) = sync_time(lambda: g.to_packed_blocks(128, sr))
-    active = ops.block_activity(pb, front)
+    nb, b = pb.num_dst_blocks, pb.block
+    live = frontier.block_live(front, nb, b)
+    if not torch.equal(live, frontier.block_live_plain(front, nb, b)):
+        fail(f"n={g.n}: block_live differs from the mask's plain reduction")
     k, _, _ = pb.decode()
-    i = torch.repeat_interleave(torch.arange(pb.num_dst_blocks, device="cuda"),
-                                pb.row_ptr.diff().long())
-    lit_edges = int(active[i, k].sum())
-    lit_tiles = int(active.sum())
+    i = torch.repeat_interleave(torch.arange(nb, device="cuda"), pb.row_ptr.diff().long())
+    slot = i * pb.max_bpr + k
+    lit_edges = int(live[pb.src_ids.reshape(-1)[slot].long()].sum())
+    real = ops.block_activity(pb, None)  # the slots below nslots
+    lit_tiles = int((real & live[pb.src_ids.long()]).sum())
     # the slots that hold entries (no entry names the padding of the
-    # (nb, max_bpr) grid), and of those the lit ones, whose source block
-    # must be read
-    held = torch.zeros(active.numel(), dtype=torch.bool, device="cuda")
-    held[i * pb.max_bpr + k] = True
+    # (nb, max_bpr) grid): the kernel reads the source block of each
+    held = torch.zeros(real.numel(), dtype=torch.bool, device="cuda")
+    held[slot] = True
     held_slots = int(held.sum())
-    lit_slots = int((held & active.reshape(-1)).sum())
     print(f"phase 4 n={g.n}: packed table {pb.nbytes} bytes ({pb.entries.numel()} "
           f"entries, slot grid {tuple(pb.src_ids.shape)}) built in {dt:.2f} s; "
-          f"{int(front.sum())} frontier vertices light {lit_tiles} of "
-          f"{int(pb.nslots.sum())} tiles ({held_slots} holding entries) and "
-          f"{lit_edges} edges", flush=True)
+          f"{int(front.sum())} frontier vertices light {int(live.sum())} of {nb} source "
+          f"blocks, {lit_tiles} of {int(pb.nslots.sum())} tiles ({held_slots} holding "
+          f"entries) and {lit_edges} edges; block_live == its plain reduction", flush=True)
 
-    kern = lambda: frontier.propagate_blocks(pb, sr, dist, front, active)
-    plain = lambda: frontier.propagate_blocks_plain(pb, sr, dist, front, active)
+    gated = lambda: frontier.propagate_blocks(pb, sr, dist, front,
+                                              live=frontier.block_live(front, nb, b))
+    kern = lambda: frontier.propagate_blocks(pb, sr, dist, front, live=live)
+    plain = lambda: frontier.propagate_blocks_plain(pb, sr, dist, front, live=live)
     coo = ops.CooBackend(g)
     lib = lambda: coo.propagate(sr, dist, front)
-    y_k, y_p, y_c = kern(), plain(), lib()
+    y_k, y_p, y_c = gated(), plain(), lib()
     if not (torch.equal(y_k, y_p) and torch.equal(y_k, y_c)):
         fail(f"n={g.n} propagate: kernel, plain and coo disagree")
     if check_dense:
         (bs, dt) = sync_time(lambda: g.to_blocks(128, sr.add_id))
-        y_d = ref.propagate_blocks_ref(bs, sr, dist, front, active)
+        y_d = ref.propagate_blocks_ref(bs, sr, dist, front, ops.block_activity(pb, front))
         packed = pack_blocks(bs, sr)
         same = all(torch.equal(getattr(pb, f), getattr(packed, f))
                    for f in ("src_ids", "nslots", "row_ptr", "entries"))
@@ -891,37 +1031,40 @@ def time_propagate(g, check_dense: bool) -> dict:
         del bs, packed, y_d
         gc.collect()
         torch.cuda.empty_cache()
-    gated = ops.CooBackend(g, gather_edges=65536)
-    gated_coo = lambda: gated.propagate(sr, dist, front)
+    gated_coo_be = ops.CooBackend(g, gather_edges=65536)
+    gated_coo = lambda: gated_coo_be.propagate(sr, dist, front)
     if not torch.equal(gated_coo(), y_k):
         fail(f"n={g.n} propagate: gated coo differs from the kernel")
-    ms = event_ms(kern, 50)
+    ms = event_ms(gated, 50)
+    kernel_ms = event_ms(kern, 50)
     plain_ms = event_ms(plain, 10)
     library_ms = event_ms(lib, 50)
     gated_ms = event_ms(gated_coo, 50)
     take_counts()  # timing launches are not a path's
     v = g.n
     per_edge = 4 + (4 if sr.reads_weight else 0)   # packed position (+ weight)
+    gate_bytes = q * v + 2 * nb                    # block_live: mask read, table written, read
     nbytes = (lit_edges * per_edge
               + q * v * (4 + 1 + 4)                # x, mask, y
-              + held_slots + lit_slots * 4)        # active, src_ids
+              + gate_bytes + held_slots * 4)       # the gate, src_ids
     dense_bytes = (lit_tiles * pb.block ** 2 * 4 + q * v * (4 + 1 + 4)
-                   + held_slots + lit_slots * 4)
+                   + gate_bytes + held_slots * 4)
     ops_ = lit_edges * q * 2                       # select + min per edge and lane
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_ / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    active_edges = int(gated.graph.out_deg[front.any(0)].sum())
-    print(f"phase 4 n={g.n}: kernel {ms!r} ms, plain {plain_ms!r} ms, coo "
-          f"scatter_reduce {library_ms!r} ms, gated coo (gather_edges=65536, "
-          f"{active_edges} active edges, one host sync) {gated_ms!r} ms, bound "
-          f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, {ops_} ops); for "
+    active_edges = int(gated_coo_be.graph.out_deg[front.any(0)].sum())
+    print(f"phase 4 n={g.n}: gate + kernel {ms!r} ms (kernel alone {kernel_ms!r} ms), "
+          f"plain {plain_ms!r} ms, coo scatter_reduce {library_ms!r} ms, gated coo "
+          f"(gather_edges=65536, {active_edges} active edges, one host sync) {gated_ms!r} "
+          f"ms, bound {bound_ms!r} ms by {bound_by} ({nbytes} bytes, {ops_} ops); for "
           f"information, the dense layout's bytes {dense_bytes} "
           f"({dense_bytes / HBM_BYTES_PER_S * 1e3!r} ms)", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, gated_coo_ms=gated_ms, bound_bytes=nbytes,
-                lit_edges=lit_edges, held_slots=held_slots, lit_slots=lit_slots)
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, gated_coo_ms=gated_ms,
+                bound_bytes=nbytes, lit_edges=lit_edges, held_slots=held_slots,
+                live_blocks=int(live.sum()))
 
 
 def phase_timing(g_main) -> dict:
@@ -952,7 +1095,8 @@ def run_app(path: str, make_engine, queries, backend: str) -> dict:
         eng.submit(q)
     take_counts()
     res, dt = sync_time(eng.run_until_drained)
-    launches, shapes = take_counts()
+    launches, shapes, gates = take_counts()
+    path_gates(path, gates, backend)
     st = eng.stats
     rounds, steps = st.rounds, st.supersteps_total
     mem = torch.cuda.max_memory_allocated()
@@ -1245,10 +1389,11 @@ def counted(path: str, run, paths: list):
     take_counts()
     out = run()
     torch.cuda.synchronize()
-    n, shapes = take_counts()
+    n, shapes, gates = take_counts()
     if n == 0:
         fail(f"{path}: the cuda run never launched the kernel")
     paths.extend(path_rows(path, shapes))
+    path_gates(path, gates)
     return out, n
 
 
@@ -4087,8 +4232,9 @@ def main():
             print(f"  {text.strip()}", flush=True)
     max_err = phase_kernel_parity()
     phase_kernel_parity_apps()
+    gate_timing = phase_gate_timing()
     g, pairs, launches, main_run = phase_main_path()
-    timing = phase_timing(g)
+    timing = dict(phase_timing(g), gate=gate_timing)
     gc.collect()
     torch.cuda.empty_cache()
     app_launches, app_paths, terrain, reach = phase_apps(g)
@@ -4112,7 +4258,8 @@ def main():
                replaces="src/repro/kernels/frontier.py:138",
                launches=launches + app_launches + ft_launches + mut_launches + serve_launches,
                max_abs_err=max_err, **timing,
-               paths=main_run["paths"] + app_paths + ft_paths + mut_paths + serve_paths)
+               paths=main_run["paths"] + app_paths + ft_paths + mut_paths + serve_paths,
+               gate_paths={p: dict(c) for p, c in GATE_PATHS.items()})
     hot = main_run["hot"]  # phase 14 renders it with 8a's A/B
     # phase 10 needs none of the graph phases' state: free it on the card
     del g, pairs, main_run, reach, deltas, store

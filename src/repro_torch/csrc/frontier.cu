@@ -10,9 +10,11 @@
 // dense (B, B) tiles because its vector units and matrix unit want them.
 // Here a tile holds 1.5 to 3.7 edges on average (barabasi_albert, m=3,
 // B=128), so the layout keeps the TPU kernel's slots (src_ids, nslots, the
-// per-(dst block, slot) activity bitmap, the per-lane mask) but stores only
-// the entries of each tile that differ from the add-identity, and this
-// kernel reads only those:
+// per-lane mask) but stores only the entries of each tile that differ from
+// the add-identity, and this kernel reads only those.  In place of the TPU
+// kernel's per-(dst block, slot) activity bitmap it looks up a per-source-
+// block live table, which block_live_kernel builds from the mask in one
+// pass:
 //
 //   * work is cut into items: a run of at most CHUNK consecutive entries of
 //     one destination block's row, as (row, first, end) (the wrapper
@@ -23,13 +25,20 @@
 //     (QT, B) accumulator in shared memory that starts at add_id.  Each
 //     thread takes ILP entries of the item (a warp per slot would idle most
 //     of its lanes at a few entries per slot) and issues their loads level
-//     by level (entry and weight; slot flag and source block; x and mask of
-//     each lane), so a pass waits on three dependent reads, not three per
-//     entry.  An entry packs its slot k, in-tile source row r and column c;
-//   * an entry of a dead slot (active[i, k] == 0) is skipped, weight and
-//     all.  Otherwise the thread reads x[q, src_ids[i, k] * B + r] for
-//     each lane (add_id where the lane's mask is off), forms mul(x, w),
-//     and combines it into the
+//     by level (entry; source block and slot flag; live byte, an L1 hit;
+//     weight, x and mask of each lane), so a pass waits on four dependent
+//     reads, not four per entry.  An entry packs its slot k, in-tile source
+//     row r and column c;
+//   * an entry whose source block is dead (live[src_ids[i, k]] == 0: no
+//     lane holds an active vertex there) is skipped, weight and all.  The
+//     live table is nb bytes and stays in L1.  A caller may instead pass a
+//     per-slot bitmap active (nb, max_bpr) and the entry is tested by
+//     active[i, k]; one of the two, or neither (every entry visited).
+//     Entries never name a padding slot (k >= nslots[i]: the packer writes
+//     none there), so no k < nslots[i] test is needed.  Otherwise the
+//     thread reads x[q, src_ids[i, k] * B + r] and the weight, for each
+//     lane (add_id where the lane's mask is off), forms mul(x, w), and
+//     combines it into the
 //     accumulator with a shared-memory atomic, unless it cannot change it
 //     (m >= add_id under min, m <= add_id under max, m == 0 under sum: an
 //     accumulator never passes add_id, so that skip is exact);
@@ -56,26 +65,26 @@
 //
 // Bound on this card: the kernel must read, per entry of a live slot, 4 B of
 // packed position (and 4 B of weight where the semiring reads one), plus x,
-// mask and y once, the bitmap byte of each slot that holds entries and the
-// source block of each live one (no entry names the padding of the
+// mask and y once, the source block of each slot that holds entries and
+// the live byte of each source block (no entry names the padding of the
 // (nb, max_bpr) grid, so it is never read).  At the main shape (Q=8,
 // barabasi_albert(262144, 3), B=128, a BFS frontier two hops out) that is
 // 23.8 MB, 7.1 us at 3.35 TB/s, four fifths of it x, mask and y.  At
 // n=32768 it is 3.40 MB, 1.01 us, below a launch: there the kernel is bound
-// by latency, the three dependent reads of a pass and the fill of the
+// by latency, the dependent reads of a pass and the fill of the
 // output.  x is 1 to 8 MB, so the per-entry gathers hit the 50 MB L2.
 // Tensor cores do not apply (no dense product at a few entries per tile),
-// nor do TMA or cp.async staging.  Persistent blocks and dropping the
-// padded slot grid (which block_activity still gathers) are left for later
-// work.
+// nor do TMA or cp.async staging.  Persistent blocks are left for later
+// work.  The live table costs one read of the (Q, V) mask; the slot grid
+// is never built or gathered on the gated path.
 //
 // Five semirings, as in the reference: min_right/max_right (label copy),
 // min_plus/max_plus (int32 add that saturates at +-INF, frontier.py:44-50;
 // plain add on float32) and sum_times (int32 wraps like XLA's dot; float32
 // multiplies in full fp32, no TF32).  x and the weights share one dtype.
 //
-// C interface (loaded with ctypes): repro_propagate_packed returns the
-// cudaError_t of the launch, 0 on success.
+// C interface (loaded with ctypes): repro_propagate_packed and
+// repro_block_live return the cudaError_t of the launch, 0 on success.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,6 +97,7 @@ constexpr int QT = 8;          // query lanes per block (ragged Q is guarded)
 constexpr int THREADS = 256;   // threads per block, striding over entries
 constexpr int ILP = 4;         // entries per thread in flight
 constexpr int CHUNK = THREADS * ILP;  // entries per work item: one pass
+constexpr int LIVE_THREADS = 128;     // threads per source block in block_live
 constexpr int32_t INF = 1 << 30;
 
 enum Semiring { MIN_PLUS = 0, MIN_RIGHT = 1, MAX_RIGHT = 2, MAX_PLUS = 3, SUM_TIMES = 4 };
@@ -221,6 +231,7 @@ propagate_packed_kernel(const T* __restrict__ x,
                         const int32_t* __restrict__ items,
                         const int32_t* __restrict__ src_ids,
                         const uint8_t* __restrict__ active,
+                        const uint8_t* __restrict__ live,
                         const uint8_t* __restrict__ mask, T* __restrict__ out,
                         int Q, int max_bpr, int B, int shift, size_t V,
                         T add_id) {
@@ -239,24 +250,35 @@ propagate_packed_kernel(const T* __restrict__ x,
   const T* xq = x + (size_t)q0 * V;
   const uint8_t* mq = mask == nullptr ? nullptr : mask + (size_t)q0 * V;
   int32_t code[ILP];
-  bool live[ILP];
-  T t[ILP];
+  bool keep[ILP];
 #pragma unroll
   for (int j = 0; j < ILP; ++j) {
     const int e = first + threadIdx.x + j * THREADS;
-    live[j] = e < end;
-    code[j] = live[j] ? entries[e] : 0;
-    t[j] = add_id;
-    if constexpr (reads_weight<SR>) {
-      if (live[j]) t[j] = w[e];
-    }
+    keep[j] = e < end;
+    code[j] = keep[j] ? entries[e] : 0;
   }
-  size_t u[ILP];
+  int32_t sb[ILP];
 #pragma unroll
   for (int j = 0; j < ILP; ++j) {
     const size_t slot = row + (code[j] >> (2 * shift));
-    if (active != nullptr && active[slot] == 0) live[j] = false;
-    u[j] = (size_t)src_ids[slot] * B + ((code[j] >> shift) & lo);
+    if (active != nullptr && active[slot] == 0) keep[j] = false;
+    sb[j] = src_ids[slot];
+  }
+  if (live != nullptr) {
+#pragma unroll
+    for (int j = 0; j < ILP; ++j) {
+      if (keep[j] && live[sb[j]] == 0) keep[j] = false;
+    }
+  }
+  T t[ILP];
+  size_t u[ILP];
+#pragma unroll
+  for (int j = 0; j < ILP; ++j) {
+    t[j] = add_id;
+    if constexpr (reads_weight<SR>) {
+      if (keep[j]) t[j] = w[first + threadIdx.x + j * THREADS];
+    }
+    u[j] = (size_t)sb[j] * B + ((code[j] >> shift) & lo);
   }
   T xv[ILP][QT];
 #pragma unroll
@@ -264,7 +286,7 @@ propagate_packed_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int q = 0; q < QT; ++q) {
       xv[j][q] = add_id;
-      if (live[j] && q < nq) {
+      if (keep[j] && q < nq) {
         const size_t off = (size_t)q * V + u[j];
         const T v = xq[off];
         if (mq == nullptr || mq[off] != 0) xv[j][q] = v;
@@ -273,9 +295,9 @@ propagate_packed_kernel(const T* __restrict__ x,
   }
 #pragma unroll
   for (int j = 0; j < ILP; ++j) {
-    // a dead slot's entry sends nothing, whatever its weight (under float
+    // a dead entry sends nothing, whatever its weight (under float
     // min_plus, add_id + t < add_id for t < -32)
-    if (!live[j]) continue;
+    if (!keep[j]) continue;
 #pragma unroll
     for (int q = 0; q < QT; ++q) {
       const T m = mul<SR>(xv[j][q], t[j], add_id);
@@ -292,31 +314,51 @@ propagate_packed_kernel(const T* __restrict__ x,
   }
 }
 
+// live[b] = whether some lane holds an active vertex in source block b:
+// mask (Q, V) reduced over the lanes and the block's columns [b*B, (b+1)*B),
+// the tail block cut at V.  One CUDA block a source block; each thread
+// issues its lanes' loads before it combines them.
+__global__ void __launch_bounds__(LIVE_THREADS)
+block_live_kernel(const uint8_t* __restrict__ mask, uint8_t* __restrict__ live,
+                  int Q, size_t V, int B) {
+  const size_t base = (size_t)blockIdx.x * B;
+  const size_t rest = base >= V ? 0 : V - base;
+  const int width = rest < (size_t)B ? (int)rest : B;
+  int any = 0;
+  for (int c = threadIdx.x; c < width; c += LIVE_THREADS) {
+    const uint8_t* col = mask + base + c;
+#pragma unroll 8
+    for (int q = 0; q < Q; ++q) any |= col[(size_t)q * V];
+  }
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) live[blockIdx.x] = any != 0;
+}
+
 template <int SR, typename T>
 cudaError_t launch(const void* x, const void* entries, const void* w,
                    const void* items, int n_items,
-                   const void* src_ids, const void* active, const void* mask,
-                   void* out, int Q, int nb, int max_bpr, int B, int shift,
-                   double add_id, cudaStream_t stream) {
+                   const void* src_ids, const void* active, const void* live,
+                   const void* mask, void* out, int Q, int nb, int max_bpr,
+                   int B, int shift, double add_id, cudaStream_t stream) {
   const dim3 grid(n_items, (Q + QT - 1) / QT);
   const size_t smem = (size_t)QT * B * sizeof(int32_t);
   propagate_packed_kernel<SR, T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int32_t*>(entries),
       static_cast<const T*>(w), static_cast<const int32_t*>(items),
       static_cast<const int32_t*>(src_ids),
-      static_cast<const uint8_t*>(active), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), Q, max_bpr, B, shift, (size_t)nb * B, (T)add_id);
+      static_cast<const uint8_t*>(active), static_cast<const uint8_t*>(live),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), Q, max_bpr, B, shift, (size_t)nb * B, (T)add_id);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int sr, const void* x, const void* entries, const void* w,
                      const void* items, int n_items,
-                     const void* src_ids, const void* active, const void* mask,
-                     void* out, int Q, int nb, int max_bpr, int B, int shift,
-                     double add_id, cudaStream_t stream) {
+                     const void* src_ids, const void* active, const void* live,
+                     const void* mask, void* out, int Q, int nb, int max_bpr,
+                     int B, int shift, double add_id, cudaStream_t stream) {
 #define REPRO_LAUNCH(SR)                                                   \
-  launch<SR, T>(x, entries, w, items, n_items, src_ids, active,            \
+  launch<SR, T>(x, entries, w, items, n_items, src_ids, active, live,      \
                 mask, out, Q, nb, max_bpr, B, shift, add_id, stream)
   switch (sr) {
     case MIN_PLUS:
@@ -344,32 +386,48 @@ cudaError_t dispatch(int sr, const void* x, const void* entries, const void* w,
 // where the semiring reads no weight; the wrapper checks that it is there
 // otherwise); items (n_items, 3) int32 (destination block row, first
 // entry, end entry), each run of at most repro_chunk() entries; src_ids
-// (nb, max_bpr) int32; active (nb, max_bpr) uint8 or null (null visits
-// every slot).
+// (nb, max_bpr) int32; active (nb, max_bpr) uint8 or null; live (nb,)
+// uint8 (repro_block_live's table) or null.  At most one of active and
+// live; with neither, every entry is visited.
 extern "C" int repro_propagate_packed(int sr, int dtype, const void* x,
                                       const void* entries, const void* w,
                                       const void* items, int n_items,
-                                      const void* src_ids,
-                                      const void* active, const void* mask,
+                                      const void* src_ids, const void* active,
+                                      const void* live, const void* mask,
                                       void* out, int Q, int nb, int max_bpr,
                                       int B, int shift, double add_id,
                                       void* stream) {
   if (Q < 1 || n_items < 1 || nb < 1 || max_bpr < 1 || B < 1 || B > 1024 ||
-      shift < 0 || shift > 10 || B > (1 << shift) || (Q + QT - 1) / QT > 65535) {
+      shift < 0 || shift > 10 || B > (1 << shift) || (Q + QT - 1) / QT > 65535 ||
+      (active != nullptr && live != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)dispatch<int32_t>(sr, x, entries, w, items, n_items,
-                                  src_ids, active, mask, out, Q, nb, max_bpr, B,
+    return (int)dispatch<int32_t>(sr, x, entries, w, items, n_items, src_ids,
+                                  active, live, mask, out, Q, nb, max_bpr, B,
                                   shift, add_id, st);
   }
   if (dtype == 1) {
-    return (int)dispatch<float>(sr, x, entries, w, items, n_items,
-                                src_ids, active, mask, out, Q, nb, max_bpr, B,
+    return (int)dispatch<float>(sr, x, entries, w, items, n_items, src_ids,
+                                active, live, mask, out, Q, nb, max_bpr, B,
                                 shift, add_id, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// mask (Q, V) uint8, row-major; live (nb,) uint8, written in full (0 where
+// no lane is active, so Q = 0 gives all 0).  V <= nb * B.
+extern "C" int repro_block_live(const void* mask, void* live, int Q,
+                                long long V, int nb, int B, void* stream) {
+  if (Q < 0 || V < 0 || nb < 1 || B < 1 || B > 1024 || V > (long long)nb * B ||
+      (Q > 0 && mask == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  block_live_kernel<<<nb, LIVE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), static_cast<uint8_t*>(live), Q,
+      (size_t)V, B);
+  return (int)cudaGetLastError();
 }
 
 // The most entries one work item may hold (THREADS * ILP: one pass).

@@ -7,9 +7,11 @@ PackedBlocks``): only the entries of each tile that differ from the
 add-identity.  The entries are cut into work items of at most
 ``repro_chunk()`` entries of one destination row (``PackedBlocks.
 work_items``); one CUDA block takes an (item, 8-lane Q-tile), skips the
-entries of dead slots through the activity bitmap, applies the per-lane
-mask, combines into a shared-memory accumulator and folds it into the
-output with global atomics.  The source says what bounds it on the card.
+entries whose source block is dead through the per-source-block live
+table (:func:`block_live`, one launch of the source's liveness kernel),
+applies the per-lane mask, combines into a shared-memory accumulator and
+folds it into the output with global atomics.  The source says what
+bounds it on the card.
 
 The kernel is built at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into ``build/repro_torch/`` at the repo
@@ -92,22 +94,67 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         fn = lib.repro_propagate_packed
         fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.repro_block_live.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+        lib.repro_block_live.restype = ctypes.c_int
         lib.repro_chunk.argtypes = []
         lib.repro_chunk.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def block_live_plain(mask: torch.Tensor, nb: int, block: int) -> torch.Tensor:
+    """The liveness kernel's plain version: ``mask`` (Q, V) reduced over the
+    lanes, then over each source block's ``block`` columns."""
+    live = torch.zeros(nb * block, dtype=torch.bool, device=mask.device)
+    live[: mask.shape[1]] = mask.any(0)
+    return live.reshape(nb, block).any(-1)
+
+
+def block_live(mask: torch.Tensor, nb: int, block: int) -> torch.Tensor:
+    """(nb,) bool — which source blocks hold an active vertex in some lane
+    of ``mask`` (Q, V) bool, V <= nb * block (the tail block is cut at V).
+    The table :func:`propagate_blocks` takes as ``live``.  CUDA tensors
+    take one launch of the liveness kernel, counted per Q in
+    ``block_live.shapes``; CPU tensors its plain version."""
+    if mask.dtype != torch.bool or mask.dim() != 2:
+        raise ValueError(f"block_live: mask must be (Q, V) bool, got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    q, v = mask.shape
+    if v > nb * block or not 1 <= block <= 1024 or nb < 1:
+        raise ValueError(f"block_live: V={v} with nb={nb}, B={block}")
+    if mask.device.type == "cpu":
+        return block_live_plain(mask, nb, block)
+    if mask.device.type != "cuda":
+        raise ValueError(f"block_live: unsupported device {mask.device}")
+    mask = mask.contiguous()
+    live = torch.empty(nb, dtype=torch.bool, device=mask.device)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        rc = load().repro_block_live(mask.data_ptr(), live.data_ptr(), q, v, nb, block,
+                                     stream)
+    if rc != 0:
+        raise RuntimeError(f"block_live: CUDA launch failed with error {rc}")
+    block_live.shapes[q] += 1
+    return live
+
+
+block_live.shapes = collections.Counter()
+
+
 def propagate_blocks_plain(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
                            mask: Optional[torch.Tensor] = None,
-                           active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           active: Optional[torch.Tensor] = None,
+                           live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's plain PyTorch version on the same packed inputs: gather
-    each entry's source lanes, gate them by ``active[i, k]`` and the mask,
-    apply the semiring's ``mul`` and combine by destination in one
-    ``scatter_reduce`` that starts at the add-identity."""
+    each entry's source lanes, gate them by ``active[i, k]`` or
+    ``live[src_ids[i, k]]`` and the mask, apply the semiring's ``mul`` and
+    combine by destination in one ``scatter_reduce`` that starts at the
+    add-identity."""
     q, v = x.shape
     b, nb = pb.block, pb.num_dst_blocks
     vp = nb * b
@@ -122,27 +169,37 @@ def propagate_blocks_plain(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
                                 pb.row_ptr.diff().long())
     k, r, c = pb.decode(i.numel())  # entries past row_ptr[-1] are padding
     slot = i * pb.max_bpr + k
-    src = pb.src_ids.reshape(-1)[slot].long() * b + r
-    msgs = ref.apply_mul(sr, xb[:, src], None if pb.w is None else pb.w[:i.numel()])
+    sb = pb.src_ids.reshape(-1)[slot].long()
+    msgs = ref.apply_mul(sr, xb[:, sb * b + r], None if pb.w is None else pb.w[:i.numel()])
     if active is not None:
         msgs = torch.where(active.reshape(-1)[slot], msgs, add_id)
+    if live is not None:
+        msgs = torch.where(live[sb], msgs, add_id)
     return sr.segment_combine(msgs, i * b + c, vp)[:, :v]
 
 
 def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
                      mask: Optional[torch.Tensor] = None,
-                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     active: Optional[torch.Tensor] = None,
+                     live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One frontier step on the packed block-sparse layout. x: (Q, V) -> (Q, V).
 
     ``mask``   (Q, V) bool — per-lane frontier; a masked source sends the
                add-identity.
-    ``active`` (nb, max_bpr) bool — per-slot activity; the entries of dead
-               slots are skipped.  None visits every slot.
+    ``live``   (nb,) bool — per-source-block liveness (:func:`block_live`
+               of the mask); an entry whose source block is dead is
+               skipped.  The gated path's form.
+    ``active`` (nb, max_bpr) bool — per-slot activity, a bitmap the caller
+               built (``ops.block_activity``); the entries of dead slots
+               are skipped.  At most one of ``live`` and ``active``; with
+               neither, every entry is visited.
 
     CPU tensors take :func:`propagate_blocks_plain`; CUDA tensors launch
     the kernel.  ``propagate_blocks.shapes`` counts the launches per
-    (semiring, dtype, Q), and :func:`launches` is their total.  A
-    dense ``BlockSparse`` is refused: pack it once with
+    (semiring, dtype, Q), and :func:`launches` is their total;
+    ``propagate_blocks.gating`` counts the calls, on either device, by
+    gating form: ``live``, ``slots`` (``active``) or ``none``.  A dense
+    ``BlockSparse`` is refused: pack it once with
     ``core.graph.pack_blocks``.
     """
     if not isinstance(pb, PackedBlocks):
@@ -151,8 +208,12 @@ def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
     if sr.reads_weight and pb.w is None:
         raise ValueError(f"propagate_blocks: {sr.name} reads weights, but the table "
                          "was packed for a semiring that reads none")
+    if active is not None and live is not None:
+        raise ValueError("propagate_blocks: pass active or live, not both")
+    propagate_blocks.gating["live" if live is not None
+                            else "slots" if active is not None else "none"] += 1
     if x.device.type == "cpu":
-        return propagate_blocks_plain(pb, sr, x, mask=mask, active=active)
+        return propagate_blocks_plain(pb, sr, x, mask=mask, active=active, live=live)
     if x.device.type != "cuda":
         raise ValueError(f"propagate_blocks: unsupported device {x.device}")
     if sr.name not in _SR_CODE:
@@ -183,10 +244,14 @@ def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
         if active.dtype != torch.bool or tuple(active.shape) != (nb, m):
             raise ValueError("propagate_blocks: active must be (nb, max_bpr) bool")
         active = active.contiguous()
+    if live is not None:
+        if live.dtype != torch.bool or tuple(live.shape) != (nb,):
+            raise ValueError("propagate_blocks: live must be (nb,) bool")
+        live = live.contiguous()
     if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != (q, v)):
         raise ValueError("propagate_blocks: mask must be (Q, V) bool")
     if any(t is not None and t.device != x.device
-           for t in (pb.src_ids, pb.row_ptr, pb.entries, w, active, mask)):
+           for t in (pb.src_ids, pb.row_ptr, pb.entries, w, active, live, mask)):
         raise ValueError("propagate_blocks: every operand must be on x's device")
     add_id = sr.identity(x.dtype)
 
@@ -213,7 +278,7 @@ def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
         rc = lib.repro_propagate_packed(
             _SR_CODE[sr.name], _DTYPE_CODE[x.dtype], xpad.data_ptr(),
             pb.entries.data_ptr(), ptr(w), items.data_ptr(), items.shape[0],
-            pb.src_ids.data_ptr(), ptr(active), ptr(mpad), out.data_ptr(),
+            pb.src_ids.data_ptr(), ptr(active), ptr(live), ptr(mpad), out.data_ptr(),
             q, nb, m, b, pb.shift, float(add_id), stream,
         )
     if rc != 0:
@@ -223,6 +288,7 @@ def propagate_blocks(pb: PackedBlocks, sr: Semiring, x: torch.Tensor,
 
 
 propagate_blocks.shapes = collections.Counter()
+propagate_blocks.gating = collections.Counter()
 
 
 def work_chunk() -> int:

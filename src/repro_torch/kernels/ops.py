@@ -21,13 +21,16 @@ messages move.  Plans in this port:
                      superstep (``core/distributed.py``; needs ``mesh=``).
 
 Sparsity gating: on the tile plans the frontier is pushed into the block
-path.  A per-(dst block, slot) activity bitmap — the frontier reduced over
-every lane, looked up per source block — lets the kernel skip dead tiles,
-and the per-lane mask is applied inside visited tiles only.  ``gate=False``
-restores the dense pre-mask as the baseline.  A tile plan's propagate
-spans the bitmap as ``quegel.gate`` and the plan's run (for ``cuda``, the
-kernel's wrapper and launch) as ``quegel.kernel`` while a profiler
-records (``core/spans.py``).
+path.  The frontier reduced over every lane and over each source block
+says which tiles can contribute: ``blocks_ref`` gathers it into a
+per-(dst block, slot) bitmap (``block_activity``, as the JAX plan does);
+``cuda`` passes the (nb,) per-source-block table itself
+(``frontier.block_live``, one launch) and the kernel looks it up per
+entry.  The per-lane mask is applied inside visited tiles only.
+``gate=False`` restores the dense pre-mask as the baseline.  A tile
+plan's propagate spans the gate as ``quegel.gate`` and the plan's run
+(for ``cuda``, the kernel's wrapper and launch) as ``quegel.kernel``
+while a profiler records (``core/spans.py``).
 
 Mutation: ``refresh(graph, delta)`` returns a new backend serving the
 mutated graph (tile tables spliced row by row, the receiver untouched, so
@@ -284,15 +287,19 @@ class _TileBackend(PropagateBackend):
             if mflat is not None:
                 flat = torch.where(mflat, flat, sr.identity(x.dtype))
                 mflat = None
-            active = None
+            gate = {}
         else:
             with span("quegel.gate"):
-                active = block_activity(bs, mflat)
+                gate = self._gate(bs, mflat)
         with span("quegel.kernel"):
-            out = self._run(bs, sr, flat, mflat, active)
+            out = self._run(bs, sr, flat, mflat, **gate)
         return out.reshape(x.shape)
 
-    def _run(self, bs, sr, flat, mflat, active):
+    def _gate(self, bs, mflat) -> dict:
+        """The plan's gating operands for ``_run``, from the (Q, V) mask."""
+        raise NotImplementedError
+
+    def _run(self, bs, sr, flat, mflat, **gate):
         raise NotImplementedError
 
 
@@ -316,7 +323,10 @@ class BlocksRefBackend(_TileBackend):
     def _pad(self, table, sr, slot_cap, entry_cap):
         return pad_block_slots(table, int(slot_cap), sr.add_id) if slot_cap else table
 
-    def _run(self, bs, sr, flat, mflat, active):
+    def _gate(self, bs, mflat):
+        return {"active": block_activity(bs, mflat)}
+
+    def _run(self, bs, sr, flat, mflat, active=None):
         return ref.propagate_blocks_ref(bs, sr, flat, mask=mflat, active=active)
 
 
@@ -367,8 +377,15 @@ class CudaBackend(_TileBackend):
             for t in list(self.tables.values()):
                 t.work_items(chunk)
 
-    def _run(self, bs, sr, flat, mflat, active):
-        return frontier.propagate_blocks(bs, sr, flat, mask=mflat, active=active)
+    def _gate(self, bs, mflat):
+        # entries never name a padding slot, so without a mask there is
+        # nothing to gate
+        if mflat is None:
+            return {}
+        return {"live": frontier.block_live(mflat, bs.num_dst_blocks, bs.block)}
+
+    def _run(self, bs, sr, flat, mflat, live=None):
+        return frontier.propagate_blocks(bs, sr, flat, mask=mflat, live=live)
 
 
 def _table_arrays(t) -> list:

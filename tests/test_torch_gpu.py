@@ -62,8 +62,9 @@ def _graph(dtype, add_id, kind, rng, cuda):
 @pytest.mark.parametrize("q", [1, 5, 11])
 @pytest.mark.parametrize("kind", ["simple", "dups", "hubs"])
 def test_kernel_matches_plain(cuda, sr_name, dtype, block, q, kind):
-    """Packed inputs, gated with a mask, dense, and all-dead; Q=11 spans
-    two Q-tiles.  Exact, except float sum_times to 1e-4 (atomic sum
+    """Packed inputs, gated with a mask by the per-slot bitmap and by the
+    per-source-block live table, dense, and all-dead in both forms; Q=11
+    spans two Q-tiles.  Exact, except float sum_times to 1e-4 (atomic sum
     order); the outputs left at add_id are the same in every case."""
     rng = np.random.default_rng(block * 31 + q)
     sr = BY_NAME[sr_name]
@@ -76,18 +77,42 @@ def test_kernel_matches_plain(cuda, sr_name, dtype, block, q, kind):
         x = torch.from_numpy(xn).to(cuda)
     pb = g.to_packed_blocks(block, sr)
     mask = torch.from_numpy(rng.random((q, g.n)) < 0.2).to(cuda)
-    dead = torch.zeros((pb.num_dst_blocks, pb.max_bpr), dtype=torch.bool, device=cuda)
-    for m, act in ((mask, ops.block_activity(pb, mask)), (None, None), (mask, dead)):
-        got = frontier.propagate_blocks(pb, sr, x, m, act)
-        want = frontier.propagate_blocks_plain(pb, sr, x, m, act)
+    nb = pb.num_dst_blocks
+    dead = torch.zeros((nb, pb.max_bpr), dtype=torch.bool, device=cuda)
+    dead_live = torch.zeros(nb, dtype=torch.bool, device=cuda)
+    for m, gate in ((mask, dict(active=ops.block_activity(pb, mask))),
+                    (mask, dict(live=frontier.block_live(mask, nb, block))),
+                    (None, {}), (mask, dict(active=dead)), (mask, dict(live=dead_live))):
+        got = frontier.propagate_blocks(pb, sr, x, m, **gate)
+        want = frontier.propagate_blocks_plain(pb, sr, x, m, **gate)
         add_id = sr.identity(dtype)
         assert torch.equal(got == add_id, want == add_id)
         if dtype == torch.float32 and sr_name == "sum_times":
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         else:
             assert torch.equal(got, want)
-        if act is dead:
+        if any(t is dead or t is dead_live for t in gate.values()):
             assert (got == add_id).all()
+
+
+@pytest.mark.parametrize("q", [0, 1, 5, 11])
+@pytest.mark.parametrize("n,block", [(700, 16), (700, 128), (4096, 128), (300, 1024)])
+def test_block_live_kernel_matches_the_reduction(cuda, q, n, block):
+    """The liveness kernel equals the mask reduced over the lanes and over
+    each source block's columns, the tail block (V no multiple of B) cut
+    at V; with no lane every block is dead."""
+    rng = np.random.default_rng(q * 7 + n + block)
+    nb = -(-n // block)
+    mask = torch.from_numpy(rng.random((q, n)) < 0.002).to(cuda)
+    if q:
+        mask[q - 1, n - 1] = True  # the tail block's last column
+    got = frontier.block_live(mask, nb, block)
+    pad = torch.zeros((q, nb * block), dtype=torch.bool, device=cuda)
+    pad[:, :n] = mask
+    want = pad.reshape(q, nb, block).any(-1).any(0)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert torch.equal(got, frontier.block_live_plain(mask, nb, block))
+    assert bool(got[-1]) == (q > 0)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -195,16 +220,18 @@ def test_splice_on_the_card_matches_a_fresh_table(cuda, sr_name, dtype):
         x = torch.from_numpy(rng.integers(0, 20, (8, g.n)).astype(np.int32)).to(cuda, dtype)
         m = torch.from_numpy(rng.random((8, g.n)) < 0.3).to(cuda)
         padded = pad_packed_slots(pb, pb.max_bpr + 2, pb.entries.numel() + 999)
+        live = frontier.block_live(m, pb.num_dst_blocks, 128)
         for t in (pb, padded):
-            act = ops.block_activity(t, m)
-            got = frontier.propagate_blocks(t, sr, x, m, act)
-            assert torch.equal(got, frontier.propagate_blocks_plain(t, sr, x, m, act))
-            assert torch.equal(got, ops.CooBackend(g).propagate(sr, x, m))
+            for gate in (dict(active=ops.block_activity(t, m)), dict(live=live)):
+                got = frontier.propagate_blocks(t, sr, x, m, **gate)
+                assert torch.equal(got, frontier.propagate_blocks_plain(t, sr, x, m, **gate))
+                assert torch.equal(got, ops.CooBackend(g).propagate(sr, x, m))
 
 
 def test_gated_coo_on_the_card(cuda):
     """The gated COO gather on the card equals plain COO and the kernel,
-    for chunks smaller and larger than the active edge set."""
+    for chunks smaller and larger than the active edge set; the kernel's
+    plan gates by one block_live launch."""
     g = barabasi_albert(4096, 3, seed=5, device=cuda)
     sr = BY_NAME["min_right"]
     rng = np.random.default_rng(2)
@@ -214,4 +241,8 @@ def test_gated_coo_on_the_card(cuda):
     for chunk in (64, 1 << 20):
         assert torch.equal(ops.CooBackend(g, gather_edges=chunk).propagate(sr, x, m), want)
     kern = ops.make_backend("cuda", g, block=128)
+    before = frontier.propagate_blocks.gating.copy()
+    live_before = frontier.block_live.shapes.copy()
     assert torch.equal(kern.propagate(sr, x, m), want)
+    assert frontier.propagate_blocks.gating - before == {"live": 1}
+    assert frontier.block_live.shapes - live_before == {8: 1}

@@ -4,12 +4,15 @@ the packed layout) against the JAX package's COO reference and its Pallas
 kernel run in interpret mode, on the same seeded inputs.  Integers match
 bit for bit; floats to rtol = atol = 1e-4, for finite x (the domain where
 dropping the add-identity entries of a tile is exact)."""
+import collections
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 import numpy as np
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.apps import ppsp as jppsp
 from repro.core.graph import Graph as JGraph
@@ -22,7 +25,7 @@ from repro.kernels import ref as jref
 
 from repro_torch.apps import ppsp
 from repro_torch.core import graph as tgraph
-from repro_torch.core.graph import PackedBlocks, pack_blocks
+from repro_torch.core.graph import PackedBlocks, pack_blocks, pad_packed_slots
 from repro_torch.core.semiring import BY_NAME
 from repro_torch.kernels import frontier, ops, ref
 
@@ -57,12 +60,14 @@ def test_coo_matches_jax(sr_name, masked):
 @pytest.mark.parametrize("sr_name", SEMIRINGS)
 @pytest.mark.parametrize("n,block", [(40, 8), (65, 16), (128, 16)])
 @pytest.mark.parametrize("q", [1, 5])
-@pytest.mark.parametrize("gated", ["gated", "dense", "dead"])
+@pytest.mark.parametrize("gated", ["gated", "live", "dense", "dead"])
 def test_propagate_blocks_matches_pallas(sr_name, n, block, q, gated):
-    """Gated: per-tile activity plus an in-tile per-lane mask; dense: every
-    tile visited, no mask; dead: an all-dead bitmap.  The packed plain
-    version against the Pallas kernel in interpret mode and against the
-    port's dense tile loop, on the same tiles."""
+    """Gated: per-tile activity plus an in-tile per-lane mask; live: the
+    same mask with the per-source-block live table in place of the
+    per-tile bitmap (and equal to the bitmap form); dense: every tile
+    visited, no mask; dead: an all-dead bitmap.  The packed plain version
+    against the Pallas kernel in interpret mode and against the port's
+    dense tile loop, on the same tiles."""
     rng = np.random.default_rng(n * 17 + q)
     jg = _graph(sr_name, n, n + q, rng)
     jsr, sr = J_BY_NAME[sr_name], BY_NAME[sr_name]
@@ -71,7 +76,7 @@ def test_propagate_blocks_matches_pallas(sr_name, n, block, q, gated):
     bs = port_blocks(jbs)
     pb = port_graph(jg).to_packed_blocks(block, sr)
     mask = jmask = act = jact = None
-    if gated == "gated":
+    if gated in ("gated", "live"):
         mask = rng.random(x.shape) < 0.3
         jmask = jnp.asarray(mask)
         jact = jops.block_activity(jbs, jmask)
@@ -84,11 +89,164 @@ def test_propagate_blocks_matches_pallas(sr_name, n, block, q, gated):
     want = jfrontier.propagate_blocks(jbs, jsr, jnp.asarray(x), jmask, jact,
                                       interpret=True)
     got = frontier.propagate_blocks(pb, sr, torch.from_numpy(x), mask, act)
+    if gated == "live":
+        live = frontier.block_live(mask, pb.num_dst_blocks, block)
+        by_live = frontier.propagate_blocks(pb, sr, torch.from_numpy(x), mask, live=live)
+        assert torch.equal(by_live, got)
+        got = by_live
     assert_same(got.numpy(), want, x.dtype == np.float32)
     tiles = ref.propagate_blocks_ref(bs, sr, torch.from_numpy(x), mask, act)
     assert_same(got.numpy(), tiles.numpy(), x.dtype == np.float32)
     if gated == "dead":
         assert (got == sr.identity(got.dtype)).all()
+
+
+LIVE_CASES = [("min_plus", np.int32), ("min_right", np.int32), ("max_right", np.int32),
+              ("max_plus", np.int32), ("sum_times", np.int32), ("min_plus", np.float32),
+              ("max_plus", np.float32), ("sum_times", np.float32)]
+
+
+def _live_case(sr_name, dtype, seed):
+    """A random graph whose V (70) is no multiple of B = 16, weights and
+    lanes of ``dtype`` in the domain where dropping a tile's add-identity
+    entries is exact, and a mask lighting about a third of the lanes."""
+    rng = np.random.default_rng(seed)
+    g0 = random_graph(70, 3.0, seed=seed)
+    e = g0.num_edges
+    w = (rng.integers(1, 9, e) if dtype == np.int32 else rng.random(e) * 8 + 1).astype(dtype)
+    jg = JGraph.from_edges(np.asarray(g0.src), np.asarray(g0.dst), g0.n_real, w=w,
+                           weight_dtype=dtype)
+    q = 5
+    if dtype == np.int32 and sr_name != "sum_times":
+        x = rand_x(rng, sr_name, jg.n, q)
+    elif sr_name == "sum_times":
+        x = (rng.integers(-4, 5, (q, jg.n)) if dtype == np.int32
+             else rng.standard_normal((q, jg.n))).astype(dtype)
+    else:
+        x = (rng.random((q, jg.n)) * 20).astype(dtype)
+        x[rng.random(x.shape) < 0.5] = J_BY_NAME[sr_name].add_id
+    return jg, x, rng.random(x.shape) < 0.3
+
+
+@pytest.mark.parametrize("sr_name,dtype", LIVE_CASES,
+                         ids=[f"{s}-{np.dtype(d).name}" for s, d in LIVE_CASES])
+@pytest.mark.parametrize("padded", [False, True], ids=["table", "padded"])
+def test_live_gate_matches_pallas(sr_name, dtype, padded):
+    """The per-source-block live table in both dtypes, with a tail block
+    (V = 70, B = 16), on a packed table as built and as ``pad_packed_slots``
+    pads it for argument-carried editions: the plain version against the
+    Pallas kernel in interpret mode (gated by its per-tile bitmap) and
+    against the port's per-slot bitmap form."""
+    jg, x, mask = _live_case(sr_name, dtype, seed=21 + len(sr_name))
+    assert jg.n % 16
+    jsr, sr = J_BY_NAME[sr_name], BY_NAME[sr_name]
+    jbs = jg.to_blocks(16, jsr.add_id, dtype=dtype)
+    pb = port_graph(jg).to_packed_blocks(16, sr)
+    if padded:
+        pb = pad_packed_slots(pb, pb.max_bpr + 3, pb.entries.numel() + 17)
+    tx, tmask = torch.from_numpy(x), torch.from_numpy(mask)
+    live = frontier.block_live(tmask, pb.num_dst_blocks, 16)
+    want = jfrontier.propagate_blocks(jbs, jsr, jnp.asarray(x), jnp.asarray(mask),
+                                      jops.block_activity(jbs, jnp.asarray(mask)),
+                                      interpret=True)
+    got = frontier.propagate_blocks(pb, sr, tx, tmask, live=live)
+    assert_same(got.numpy(), want, dtype == np.float32)
+    act = ops.block_activity(pb, tmask)
+    assert torch.equal(got, frontier.propagate_blocks(pb, sr, tx, tmask, act))
+
+
+@pytest.mark.parametrize("q", [1, 5, 11])
+def test_block_live_reduces_each_source_block(q):
+    """``block_live`` is the mask reduced over the lanes and each source
+    block's columns, the tail block cut at V; looked up through src_ids
+    and cut to the real slots it is ``block_activity``'s bitmap."""
+    jg = random_graph(70, 3.0, seed=q)
+    pb = port_graph(jg).to_packed_blocks(16, BY_NAME["min_right"])
+    nb = pb.num_dst_blocks
+    mask = torch.zeros((q, jg.n), dtype=torch.bool)
+    mask[q - 1, jg.n - 1] = True                 # the tail block only
+    mask[0, 17] = True
+    want = [bool(mask[:, b * 16:(b + 1) * 16].any()) for b in range(nb)]
+    live = frontier.block_live(mask, nb, 16)
+    assert live.dtype == torch.bool and live.tolist() == want
+    assert want[-1] and want[1] and not want[0]
+    valid = ops.block_activity(pb, None)
+    assert torch.equal(valid & live[pb.src_ids.long()], ops.block_activity(pb, mask))
+    assert not frontier.block_live(mask[:0], nb, 16).any()
+    with pytest.raises(ValueError, match="V="):
+        frontier.block_live(mask, 1, 16)
+    with pytest.raises(ValueError, match="not both"):
+        frontier.propagate_blocks(pb, BY_NAME["min_right"], torch.zeros((q, jg.n), dtype=torch.int32),
+                                  mask, ops.block_activity(pb, mask), live)
+
+
+@pytest.mark.parametrize("sr_name", SEMIRINGS)
+def test_all_dead_live_table_leaves_add_id(sr_name):
+    """An all-false live table leaves every output at add_id, whatever the
+    mask lets through; an all-true one gates nothing."""
+    rng = np.random.default_rng(12)
+    jg = _graph(sr_name, 65, 12, rng)
+    sr = BY_NAME[sr_name]
+    x = torch.from_numpy(rand_x(rng, sr_name, jg.n, 3))
+    pb = port_graph(jg).to_packed_blocks(16, sr)
+    mask = torch.ones(x.shape, dtype=torch.bool)
+    dead = torch.zeros(pb.num_dst_blocks, dtype=torch.bool)
+    got = frontier.propagate_blocks(pb, sr, x, mask, live=dead)
+    assert (got == sr.identity(got.dtype)).all()
+    full = frontier.propagate_blocks(pb, sr, x, mask, live=~dead)
+    assert torch.equal(full, frontier.propagate_blocks(pb, sr, x, mask))
+    assert not (full == sr.identity(full.dtype)).all()
+
+
+class _Shapes(TorchDispatchMode):
+    """Records the shape and dtype of every tensor each aten op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                self.seen.append((str(func), tuple(t.shape), t.dtype))
+        return out
+
+
+def test_cuda_plan_gates_by_the_live_table(monkeypatch):
+    """The ``cuda`` plan's gated propagate (its plain version on these CPU
+    tensors) passes the per-source-block live table on every call with a
+    frontier: no ``block_activity``, no (nb, max_bpr) tensor, no int64
+    copy of ``src_ids``.  Without a frontier, or with ``gate=False``, it
+    passes no table.  Answers equal the JAX masked COO reference."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the cuda plan built the per-slot bitmap")
+
+    rng = np.random.default_rng(13)
+    jg = _graph("min_plus", 150, 13, rng)
+    sr = BY_NAME["min_plus"]
+    x = rand_x(rng, "min_plus", jg.n, 4)
+    mask = rng.random(x.shape) < 0.15
+    tg = port_graph(jg)
+    be = ops.make_backend("cuda", tg, block=16)
+    pb = be.table_for(sr)
+    grid = (pb.num_dst_blocks, pb.max_bpr)
+    monkeypatch.setattr(ops, "block_activity", refuse)
+    gating = frontier.propagate_blocks.gating
+    before = gating.copy()
+    with _Shapes() as rec:
+        got = be.propagate(sr, torch.from_numpy(x), torch.from_numpy(mask))
+    assert gating - before == collections.Counter(live=1)
+    assert rec.seen and not [s for s in rec.seen if s[1] == grid]
+    assert not [s for s in rec.seen
+                if s[2] == torch.int64 and int(np.prod(s[1])) == grid[0] * grid[1]]
+    want = jref.propagate_coo(jg, J_BY_NAME["min_plus"], jnp.asarray(x), jnp.asarray(mask))
+    assert_same(got.numpy(), want, False)
+    before = gating.copy()
+    be.propagate(sr, torch.from_numpy(x))
+    ops.make_backend("cuda", tg, block=16, gate=False).propagate(
+        sr, torch.from_numpy(x), torch.from_numpy(mask))
+    assert gating - before == collections.Counter(none=2)
 
 
 @pytest.mark.parametrize("sr_name", SEMIRINGS)
