@@ -5,12 +5,15 @@ the yardstick imports nothing of the port either."""
 import ast
 import json
 import re
+import shutil
 
 import pytest
 
-from qbench.tests.tiny import QBENCH, ROOT
+from qbench.tests.tiny import QBENCH, ROOT, cut_path, make_root
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+# what a CPU cut may not touch: it shrinks sizes and never changes semantics
+SEMANTICS = {"engine", "answer", "limits", "guarantees"}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
@@ -65,6 +68,30 @@ def test_configs_and_workloads():
         pairs.add((w["config"], w["traffic"]))
     assert len({w["name"] for w in BENCH["workloads"]}) == len(BENCH["workloads"]) <= 24
     assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(BENCH["workloads"]) // 4)
+
+
+@pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
+def test_each_configuration_has_a_cpu_cut_that_only_shrinks_sizes(entry):
+    path = cut_path(ROOT, entry["name"])
+    assert path.is_file(), f"no {path}"
+    cut = json.loads(path.read_text())
+    cfg = json.loads((ROOT / entry["file"]).read_text())
+    assert isinstance(cut, dict) and cut
+    assert set(cut) <= set(cfg) and not set(cut) & SEMANTICS
+    for key, value in cut.items():
+        if isinstance(value, dict):
+            assert isinstance(cfg[key], dict) and set(value) <= set(cfg[key]), key
+
+
+def test_a_configuration_without_its_cut_is_named(tmp_path):
+    source = tmp_path / "source"
+    shutil.copytree(QBENCH, source / "qbench", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", source)
+    name = BENCH["configs"][0]["name"]
+    cut_path(source, name).unlink()
+    with pytest.raises(FileNotFoundError, match=re.escape(str(cut_path(source, name)))) as err:
+        make_root(tmp_path / "root", source=source)
+    assert "engine, answer, limits or guarantees" in str(err.value)
 
 
 def test_metrics_and_what_each_cell_reports():

@@ -1,7 +1,8 @@
-"""The harness on the CPU at a tiny size: its dispatch by name, a cell added
-by files alone, the refusals, and ``correct`` coming out false when the
-timed path is broken underneath (each fault these cells can have) or when
-the control takes the program's place."""
+"""The harness on the CPU at a tiny size: its dispatch by name, a cell and a
+configuration added by files alone, the refusals, and ``correct`` coming out
+false when the timed path is broken underneath (each fault these cells can
+have) or when the control takes the program's place.  The cells are those of
+``BENCHMARK.json``, each cut to the CPU by its configuration's cut file."""
 import contextlib
 import io
 import json
@@ -15,7 +16,10 @@ import torch
 from qbench import harness, loops, trace
 from qbench.tests.tiny import QBENCH, ROOT, make_root
 
-CELLS = ["kron20-bibfs-batch", "terrain2m-sssp-batch"]
+# read once at import, the same in every worker, so each collects the same cases
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+CELLS = [w["name"] for w in BENCH["workloads"]]
+KRON, TERRAIN = "kron20-bibfs-batch", "terrain2m-sssp-batch"
 
 
 @pytest.fixture(autouse=True)
@@ -38,12 +42,17 @@ def run_cell(root, workload, *extra, fault=None, seconds="0.5"):
     return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
 
 
+def listed(kind, workload):
+    """The names of the ``kind`` metrics that ``BENCHMARK.json`` gives the cell."""
+    return {m["name"] for m in BENCH[kind] if workload in m.get("workloads", CELLS)}
+
+
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_sound_run_is_correct_and_reports_its_metrics(tmp_path, workload):
     rc, res, err = run_cell(make_root(tmp_path), workload)
     assert rc == 0, err
     assert res["correct"] is True and res["failed"] == 0 and res["attempted"] > 0
-    assert set(res["metrics"]) == {"qps", "p50_ms", "p95_ms", "setup_s"}
+    assert set(res["metrics"]) == listed("end_to_end", workload)
     assert list(res)[-1] == "checks"
     assert res["device"]["platform"] == "gpu" and res["device"]["count"] == 1
     tail = err.strip().splitlines()[-len(res["checks"]):]
@@ -57,13 +66,15 @@ def test_a_traced_run_reports_the_per_layer_metrics(tmp_path, workload):
     assert res["correct"] is True
     # no device on the CPU: the device readers find nothing but the idle share
     assert {"slot_fill", "queue_wait_p95_ms", "round_ms", "service_p95_ms"} <= set(res["metrics"])
+    host = {m["name"] for m in BENCH["per_layer"] if m["source"] == "host_clock"}
+    assert listed("per_layer", workload) & host <= set(res["metrics"])
     assert "propagate_roofline" not in res["metrics"]
     assert res["device"]["window_s"] > 0 and "breakdown" in res
 
 
 def test_a_traced_run_profiles_the_windows_first_part(tmp_path, monkeypatch):
     monkeypatch.setattr(harness, "TRACE_S", 0.3)
-    rc, res, err = run_cell(make_root(tmp_path), CELLS[0], "--trace", "1", seconds="1.2")
+    rc, res, err = run_cell(make_root(tmp_path), KRON, "--trace", "1", seconds="1.2")
     assert rc == 0, err
     assert res["correct"] is True
     assert 0.3 <= res["device"]["window_s"] < 0.6
@@ -94,8 +105,41 @@ def test_a_cell_config_traffic_and_metric_added_by_files_alone(tmp_path):
     assert res["correct"] is True
     assert res["metrics"]["dummy_answered"]["value"] == pytest.approx(
         res["metrics"]["qps"]["value"] * 0.5)
-    rc, res, _ = run_cell(root, "kron20-bibfs-batch")
+    rc, res, _ = run_cell(root, KRON)
     assert "dummy_answered" not in res["metrics"]
+
+
+def test_a_configuration_with_new_glue_joins_by_files_alone(tmp_path):
+    """A checkout gains a configuration with an app of its own, its cut, a
+    traffic mix and a cell by new files and new entries alone: the tiny
+    checkout is made from it, its cell runs correct, and a broken timed path
+    is not correct."""
+    source = tmp_path / "source"
+    shutil.copytree(QBENCH, source / "qbench", ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    q = source / "qbench"
+    shutil.copy(q / "apps/bibfs.py", q / "apps/bibfs2.py")
+    cfg = json.loads((q / "configs/kron20-bibfs.json").read_text())
+    cfg.update(name="kron20-two", app="bibfs2")
+    (q / "configs/kron20-two.json").write_text(json.dumps(cfg))
+    (q / "tests/cuts/kron20-two.json").write_text(json.dumps({"scale": 7, "check": {"sample": 16}}))
+    traffic = json.loads((q / "traffic/closed8-uniform.json").read_text())
+    traffic.update(clients=4, warmup_queries=8)
+    (q / "traffic/closed4-uniform.json").write_text(json.dumps(traffic))
+    bench["configs"].append({"name": "kron20-two", "source": "test", "reduced": ["scale"],
+                             "file": "qbench/configs/kron20-two.json", "why": "test"})
+    bench["workloads"].append({"name": "kron20-two-batch", "config": "kron20-two",
+                               "traffic": "closed4-uniform", "chips": 1, "why": "test"})
+    (source / "BENCHMARK.json").write_text(json.dumps(bench))
+    root = make_root(tmp_path / "root", drain_s=0.5, source=source)
+    made = json.loads((root / "qbench/configs/kron20-two.json").read_text())
+    assert made["app"] == "bibfs2" and made["scale"] == 7
+    rc, res, err = run_cell(root, "kron20-two-batch")
+    assert rc == 0, err
+    assert res["correct"] is True and res["attempted"] > 0
+    rc, res, err = run_cell(root, "kron20-two-batch", fault=altered_answer)
+    assert rc == 0, err
+    assert res["correct"] is False and res["checks"]["mismatches"]["value"] > 0
 
 
 # --------------------------------------------------------------- the faults
@@ -186,7 +230,7 @@ def test_the_drain_adds_no_bytes_to_the_roofline(tmp_path, monkeypatch):
     monkeypatch.setattr(Recording, "__init__", init)
     monkeypatch.setattr(trace, "ByteCounter", Recording)
     monkeypatch.setattr(loops.Window, "drain", drain)
-    rc, res, err = run_cell(make_root(tmp_path), CELLS[1], "--trace", "1")
+    rc, res, err = run_cell(make_root(tmp_path), TERRAIN, "--trace", "1")
     assert rc == 0, err
     assert seen["drain_rounds"] > 0
     assert seen["closed"] > 0 and seen["after"] == seen["closed"]
@@ -197,7 +241,7 @@ def test_no_cuda_device_gives_no_result(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = harness.main(["--workload", CELLS[0], "--seed", "1", "--seconds", "1"],
+        rc = harness.main(["--workload", KRON, "--seed", "1", "--seconds", "1"],
                           root=make_root(tmp_path), device="cuda")
     assert rc != 0 and out.getvalue() == ""
     assert "CUDA" in err.getvalue()
@@ -207,7 +251,7 @@ def test_a_checkout_of_only_the_benchmark_gives_no_result(tmp_path):
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
     shutil.copytree(QBENCH, tmp_path / "qbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    done = subprocess.run([sys.executable, "qbench/run.py", "--workload", CELLS[1],
+    done = subprocess.run([sys.executable, "qbench/run.py", "--workload", TERRAIN,
                            "--seed", "1", "--seconds", "1", "--trace", "0"],
                           cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert done.returncode != 0
@@ -218,6 +262,6 @@ def test_a_checkout_of_only_the_benchmark_gives_no_result(tmp_path):
 def test_jax_loaded_by_the_run_gives_no_result(tmp_path, monkeypatch, top):
     name = f"{top}._loaded_by_the_run"
     load = lambda engine: monkeypatch.setitem(sys.modules, name, type(sys)(name))
-    rc, res, err = run_cell(make_root(tmp_path), CELLS[0], fault=load)
+    rc, res, err = run_cell(make_root(tmp_path), KRON, fault=load)
     assert rc != 0 and res is None
     assert name in err

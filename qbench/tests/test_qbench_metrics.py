@@ -114,6 +114,12 @@ def test_end_to_end_readers():
     assert reader("setup_s")(ctx) == 12.5
 
 
+def test_the_tail_read_per_layer_is_the_end_to_end_p95():
+    ctx = context()
+    assert reader("tail_p95_ms")(ctx) == pytest.approx(reader("p95_ms")(ctx))
+    assert reader("tail_p95_ms")(context(answered=[])) is None
+
+
 def test_breakdown_names_idle_time_by_the_host(summary):
     b = trace.breakdown(summary)
     assert b["device_ops"] == [["other_k", pytest.approx(100 * US)],
