@@ -2,7 +2,9 @@
 configuration added by files alone, the refusals, and ``correct`` coming out
 false when the timed path is broken underneath (each fault these cells can
 have) or when the control takes the program's place.  The cells are those of
-``BENCHMARK.json``, each cut to the CPU by its configuration's cut file."""
+``BENCHMARK.json``, each cut to the CPU by its configuration's cut file, and
+each is held to the per-cell checks of ``cells.py``; so is the cell of a
+configuration that joins by files and entries alone."""
 import contextlib
 import io
 import json
@@ -14,62 +16,23 @@ import pytest
 import torch
 
 from qbench import harness, loops, trace
+from qbench.tests import cells
+from qbench.tests.cells import BENCH, CELLS, altered_answer, run_cell
+from qbench.tests.cells import only_what_the_run_loads  # noqa: F401
 from qbench.tests.tiny import QBENCH, ROOT, make_root
 
-# read once at import, the same in every worker, so each collects the same cases
-BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in BENCH["workloads"]]
 KRON, TERRAIN = "kron20-bibfs-batch", "terrain2m-sssp-batch"
-
-
-@pytest.fixture(autouse=True)
-def only_what_the_run_loads(monkeypatch):
-    """A run is its own process; in a test process other tests may already
-    have loaded JAX, so only what a run loads counts here."""
-    before = set(harness.forbidden_modules())
-    orig = harness.forbidden_modules
-    monkeypatch.setattr(harness, "forbidden_modules",
-                        lambda: sorted(set(orig()) - before))
-
-
-def run_cell(root, workload, *extra, fault=None, seconds="0.5"):
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = harness.main(["--workload", workload, "--seed", "2147483659",
-                           "--seconds", seconds, *extra],
-                          root=root, device="cpu", fault=fault)
-    lines = out.getvalue().strip().splitlines()
-    return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
-
-
-def listed(kind, workload):
-    """The names of the ``kind`` metrics that ``BENCHMARK.json`` gives the cell."""
-    return {m["name"] for m in BENCH[kind] if workload in m.get("workloads", CELLS)}
+NEW_CELL = "kron20-two-batch"
 
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_sound_run_is_correct_and_reports_its_metrics(tmp_path, workload):
-    rc, res, err = run_cell(make_root(tmp_path), workload)
-    assert rc == 0, err
-    assert res["correct"] is True and res["failed"] == 0 and res["attempted"] > 0
-    assert set(res["metrics"]) == listed("end_to_end", workload)
-    assert list(res)[-1] == "checks"
-    assert res["device"]["platform"] == "gpu" and res["device"]["count"] == 1
-    tail = err.strip().splitlines()[-len(res["checks"]):]
-    assert all(line.startswith("check ") and "(limit " in line for line in tail)
+    cells.sound(make_root(tmp_path), BENCH, workload)
 
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_traced_run_reports_the_per_layer_metrics(tmp_path, workload):
-    rc, res, err = run_cell(make_root(tmp_path), workload, "--trace", "1")
-    assert rc == 0, err
-    assert res["correct"] is True
-    # no device on the CPU: the device readers find nothing but the idle share
-    assert {"slot_fill", "queue_wait_p95_ms", "round_ms", "service_p95_ms"} <= set(res["metrics"])
-    host = {m["name"] for m in BENCH["per_layer"] if m["source"] == "host_clock"}
-    assert listed("per_layer", workload) & host <= set(res["metrics"])
-    assert "propagate_roofline" not in res["metrics"]
-    assert res["device"]["window_s"] > 0 and "breakdown" in res
+    cells.traced(make_root(tmp_path), BENCH, workload)
 
 
 def test_a_traced_run_profiles_the_windows_first_part(tmp_path, monkeypatch):
@@ -109,88 +72,81 @@ def test_a_cell_config_traffic_and_metric_added_by_files_alone(tmp_path):
     assert "dummy_answered" not in res["metrics"]
 
 
+# a reader of one of the program's spans, for the joining cell alone
+STEP_MS = '''"""The mean of the traced window's ``quegel.step`` spans, in ms."""
+
+
+def read(ctx):
+    s = ctx.summary
+    if s is None:
+        return None
+    lo, hi = s.window
+    t = [b - a for a, b, name, _ in s.host if name == "quegel.step" and lo <= a and b <= hi]
+    return sum(t) / len(t) * 1e3 if t else None
+'''
+
+
+def source_with_new_glue(tmp):
+    """Make ``tmp`` a copy of the benchmark that gains by new files and
+    entries alone a configuration with an app of its own, its cut, a traffic
+    mix, a cell, and a per-layer metric of the program's spans with a reader
+    of its own, listed for that cell alone; return its ``BENCHMARK.json``."""
+    shutil.copytree(QBENCH, tmp / "qbench", ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    q = tmp / "qbench"
+    shutil.copy(q / "apps/bibfs.py", q / "apps/bibfs2.py")
+    cfg = json.loads((q / "configs/kron20-bibfs.json").read_text())
+    cfg.update(name="kron20-two", app="bibfs2")
+    (q / "configs/kron20-two.json").write_text(json.dumps(cfg))
+    (q / "tests/cuts/kron20-two.json").write_text(json.dumps({"scale": 7, "check": {"sample": 24}}))
+    traffic = json.loads((q / "traffic/closed8-uniform.json").read_text())
+    traffic.update(clients=4, warmup_queries=8)
+    (q / "traffic/closed4-uniform.json").write_text(json.dumps(traffic))
+    (q / "metrics/step_ms.py").write_text(STEP_MS)
+    bench["configs"].append({"name": "kron20-two", "source": "test", "reduced": ["scale"],
+                             "file": "qbench/configs/kron20-two.json", "why": "test"})
+    bench["workloads"].append({"name": NEW_CELL, "config": "kron20-two",
+                               "traffic": "closed4-uniform", "chips": 1, "why": "test"})
+    bench["per_layer"].append({"name": "step_ms", "unit": "ms", "better": "lower",
+                               "source": "program_span", "layer": "engine round",
+                               "moves": "qps", "workloads": [NEW_CELL]})
+    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    return bench
+
+
 def test_a_configuration_with_new_glue_joins_by_files_alone(tmp_path):
     """A checkout gains a configuration with an app of its own, its cut, a
     traffic mix and a cell by new files and new entries alone: the tiny
     checkout is made from it, its cell runs correct, and a broken timed path
     is not correct."""
     source = tmp_path / "source"
-    shutil.copytree(QBENCH, source / "qbench", ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    q = source / "qbench"
-    shutil.copy(q / "apps/bibfs.py", q / "apps/bibfs2.py")
-    cfg = json.loads((q / "configs/kron20-bibfs.json").read_text())
-    cfg.update(name="kron20-two", app="bibfs2")
-    (q / "configs/kron20-two.json").write_text(json.dumps(cfg))
-    (q / "tests/cuts/kron20-two.json").write_text(json.dumps({"scale": 7, "check": {"sample": 16}}))
-    traffic = json.loads((q / "traffic/closed8-uniform.json").read_text())
-    traffic.update(clients=4, warmup_queries=8)
-    (q / "traffic/closed4-uniform.json").write_text(json.dumps(traffic))
-    bench["configs"].append({"name": "kron20-two", "source": "test", "reduced": ["scale"],
-                             "file": "qbench/configs/kron20-two.json", "why": "test"})
-    bench["workloads"].append({"name": "kron20-two-batch", "config": "kron20-two",
-                               "traffic": "closed4-uniform", "chips": 1, "why": "test"})
-    (source / "BENCHMARK.json").write_text(json.dumps(bench))
+    source_with_new_glue(source)
     root = make_root(tmp_path / "root", drain_s=0.5, source=source)
     made = json.loads((root / "qbench/configs/kron20-two.json").read_text())
     assert made["app"] == "bibfs2" and made["scale"] == 7
-    rc, res, err = run_cell(root, "kron20-two-batch")
+    rc, res, err = run_cell(root, NEW_CELL)
     assert rc == 0, err
     assert res["correct"] is True and res["attempted"] > 0
-    rc, res, err = run_cell(root, "kron20-two-batch", fault=altered_answer)
+    rc, res, err = run_cell(root, NEW_CELL, fault=altered_answer)
     assert rc == 0, err
     assert res["correct"] is False and res["checks"]["mismatches"]["value"] > 0
 
 
-# --------------------------------------------------------------- the faults
-def stale_state(engine):
-    """A step that returns its state unchanged."""
-    prog = engine.program
-    inner = prog.superstep
-
-    def superstep(state, ctx):
-        return state, inner(state, ctx)[1]
-
-    prog.superstep = superstep
-
-
-def half_batch(engine):
-    """Half of the batch left out: the upper half of the lanes sends nothing."""
-    for backend in engine._backends.values():
-        inner = backend.propagate
-
-        def propagate(sr, x, frontier=None, _inner=inner):
-            keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-            keep[x.shape[0] // 2:] = False
-            f = keep[:, None] if frontier is None else frontier & keep[:, None]
-            return _inner(sr, x, f)
-
-        backend.propagate = propagate
+@pytest.mark.parametrize("check", cells.CHECKS)
+def test_a_new_configurations_cell_passes_every_per_cell_check(tmp_path, check):
+    """The cell of a configuration that joins by files alone, with only its
+    own per-layer metric, passes each per-cell check the cells of
+    ``BENCHMARK.json`` pass, the traced ones included: it reports that
+    metric and none of the metrics listed for the other cells."""
+    source = tmp_path / "source"
+    bench = source_with_new_glue(source)
+    cells.CHECKS[check](make_root(tmp_path / "root", source=source), bench, NEW_CELL)
 
 
-def altered_answer(engine):
-    """An answer altered where it is produced: every other slot's distance."""
-    prog = engine.program
-    inner = prog.extract
-
-    def extract(state, query):
-        res = dict(inner(state, query))
-        bump = torch.zeros_like(res["dist"])
-        bump[::2] = 1
-        res["dist"] = res["dist"] + bump
-        return res
-
-    prog.extract = extract
-
-
-@pytest.mark.parametrize("fault", [stale_state, half_batch, altered_answer],
-                         ids=lambda f: f.__name__)
+@pytest.mark.parametrize("fault", cells.FAULTS, ids=lambda f: f.__name__)
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_broken_timed_path_is_not_correct(tmp_path, workload, fault):
-    rc, res, err = run_cell(make_root(tmp_path, drain_s=0.5), workload, fault=fault)
-    assert rc == 0, err
-    assert res["correct"] is False
-    assert any(c["value"] > c["limit"] for c in res["checks"].values())
+    cells.broken(make_root(tmp_path, drain_s=0.5), BENCH, workload, fault)
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -198,11 +154,7 @@ def test_the_control_is_not_correct(tmp_path, workload):
     """The control in the program's place: the first-meet search breaks the
     exact hop count, bfloat16 the float32 distances.  The harness's own
     comparison judges its answers and finds them wrong."""
-    rc, res, err = run_cell(make_root(tmp_path), workload, "--control", "1")
-    assert rc == 0, err
-    assert res["correct"] is False
-    assert any(c["value"] > c["limit"] for c in res["checks"].values())
-    assert "the control answers" in err
+    cells.control(make_root(tmp_path), BENCH, workload)
 
 
 def test_the_drain_adds_no_bytes_to_the_roofline(tmp_path, monkeypatch):

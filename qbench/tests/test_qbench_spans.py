@@ -1,12 +1,13 @@
 """The readers of the program's own spans (``quegel.*``): round_host_ms,
 admit_ms and step_launches on a synthetic trace whose numbers are worked
 out by hand, nothing on a trace without those spans, and a traced run on
-the CPU."""
+the CPU of each cell, held to the span metrics it lists (``cells.spans``)."""
 import pytest
 
 from qbench import trace
-from qbench.tests.test_qbench_harness import CELLS, run_cell
-from qbench.tests.test_qbench_harness import only_what_the_run_loads  # noqa: F401
+from qbench.tests import cells
+from qbench.tests.cells import BENCH, CELLS
+from qbench.tests.cells import only_what_the_run_loads  # noqa: F401
 from qbench.tests.test_qbench_metrics import EVENTS, context, reader, x
 from qbench.tests.tiny import make_root
 
@@ -88,10 +89,4 @@ def test_the_programs_spans_move_no_trace_reader():
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_traced_run_reads_the_programs_spans(tmp_path, workload):
-    rc, res, err = run_cell(make_root(tmp_path), workload, "--trace", "1")
-    assert rc == 0, err
-    m = res["metrics"]
-    assert 0 < m["round_host_ms"]["value"] < m["round_ms"]["value"] * 1.5
-    assert m["admit_ms"]["value"] > 0
-    # the CPU launches nothing on a device
-    assert "step_launches" not in m
+    cells.spans(make_root(tmp_path), BENCH, workload)

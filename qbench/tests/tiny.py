@@ -17,7 +17,13 @@ and entries alone:
 - its cut, ``qbench/tests/cuts/<config>.json``;
 - its traffic mix, ``qbench/traffic/<traffic>.json``, where that is new;
 - its entries in ``BENCHMARK.json``: one under ``configs`` and its cells
-  under ``workloads``, which the harness tests take their cells from.
+  under ``workloads``, which the harness tests take their cells from;
+- its per-layer entries that name its cells under ``workloads``: each cell
+  reports at least one, and each entry's ``moves`` is an end-to-end metric
+  that the cell reports.  A per-layer metric already there names the cells
+  it was measured in; a new cell reports the metrics that name it and those
+  that name no cells (today the end-to-end metrics without a list), and the
+  checks of ``cells.py`` hold it to exactly those.
 """
 from __future__ import annotations
 
